@@ -1,0 +1,46 @@
+"""mdgan_tpu_torch — the MD-GAN framework on PyTorch and CUDA (NVIDIA Hopper).
+
+A port of ``mdgan_tpu`` (the JAX/TPU package beside it, which stays the
+reference): one generator trained against N discriminators, each on its own
+shard of the data, with image-gradient error feedback aggregated into the
+generator step and periodic discriminator swaps.
+
+Models are NCHW ``nn.Module``s with OIHW weights.  The two Pallas kernels of
+the JAX package (fused Adam, uint8 gather + normalize) are hand-written CUDA
+kernels here (``csrc/``), built with ``nvcc`` on first use and bound with
+``ctypes``; on a CUDA device they are the only implementation, and their
+plain PyTorch versions run only for CPU tensors.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
+no GPU present they raise.
+
+Layout (mirrors ``mdgan_tpu``):
+    core/      config dataclasses, dataset registry, random lanes, device choice
+    data/      CIFAR-10 / synthetic loaders, partitioner, sampler
+    models/    DCGAN-32, flax-convention BatchNorm, JAX weight import
+    ops/       losses and the CUDA kernel wrappers (+ their build)
+    engine/    arena-backed network state, the MD-GAN round
+    cli/       the train entry point
+
+This package imports neither JAX nor any module of ``mdgan_tpu``.
+"""
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """Lazy convenience exports (kept lazy so ``import mdgan_tpu_torch`` is cheap)."""
+    lazy = {
+        "TrainConfig": "mdgan_tpu_torch.core.config",
+        "DataConfig": "mdgan_tpu_torch.core.config",
+        "MeshConfig": "mdgan_tpu_torch.core.config",
+        "RunConfig": "mdgan_tpu_torch.core.config",
+        "MDGANEngine": "mdgan_tpu_torch.engine.mdgan",
+        "get_dataset": "mdgan_tpu_torch.core.registry",
+    }
+    if name in lazy:
+        import importlib
+
+        module = importlib.import_module(lazy[name])
+        return getattr(module, "get" if name == "get_dataset" else name)
+    raise AttributeError(name)

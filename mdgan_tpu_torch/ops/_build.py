@@ -1,0 +1,135 @@
+"""Build and load the port's CUDA kernels.
+
+One ``nvcc`` call compiles every source of ``csrc/`` into one shared library
+with a plain C interface, loaded with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o build/libmdgan_kernels_<hash>.so csrc/*.cu
+
+No PyTorch headers and no ``torch.utils.cpp_extension`` builder: a plain-C
+file compiles in seconds, a file that includes ``torch/extension.h`` in
+minutes.  The library goes to ``build/`` at the repository root (ignored by
+git); its name carries a hash of the sources and flags, so a stale library is
+never loaded and a current one is reused; ptxas's resource report is kept
+beside it as ``.log``.  Nothing is built or loaded until a
+wrapper first sees a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import List, Optional
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = ("adam.cu", "sampling.cu")
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_c_void_p, _c_int, _c_int64, _c_float = (ctypes.c_void_p, ctypes.c_int,
+                                          ctypes.c_int64, ctypes.c_float)
+# C signatures of csrc/*.cu's extern "C" functions (all return cudaError_t as int)
+SIGNATURES = {
+    "mdgan_adam_f32": [_c_void_p] * 4 + [_c_int64] + [_c_float] * 7 + [_c_void_p],
+    "mdgan_sample_normalize_u8": [_c_void_p] * 3 + [_c_int, _c_int64, _c_int, _c_int,
+                                                    _c_int, _c_void_p],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def nvcc_candidates() -> List[Path]:
+    """Where nvcc is looked for, in order: $CUDA_HOME, torch's CUDA_HOME,
+    /usr/local/cuda."""
+    homes = []
+    if os.environ.get("CUDA_HOME"):
+        homes.append(os.environ["CUDA_HOME"])
+    try:
+        from torch.utils.cpp_extension import CUDA_HOME  # path lookup only
+    except ImportError:
+        CUDA_HOME = None
+    if CUDA_HOME:
+        homes.append(CUDA_HOME)
+    homes.append("/usr/local/cuda")
+    return [Path(h) / "bin" / "nvcc" for h in homes]
+
+
+def find_nvcc() -> Path:
+    for cand in nvcc_candidates():
+        if cand.is_file():
+            return cand
+    raise RuntimeError(
+        "nvcc not found (tried " + ", ".join(map(str, nvcc_candidates())) + "); the "
+        "CUDA kernels are built with: " + " ".join(command(Path("nvcc"), library_path())))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libmdgan_kernels_{source_hash()}.so"
+
+
+def command(nvcc: Path, out: Path) -> List[str]:
+    return [str(nvcc), *NVCC_FLAGS, "-o", str(out), *(str(CSRC / s) for s in SOURCES)]
+
+
+def build() -> Path:
+    """Compile the library unless a current one exists; return its path."""
+    out = library_path()
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    # compile to a private name, then rename: a concurrent or interrupted
+    # build never leaves a half-written library under the final name
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = command(nvcc, Path(tmp))
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+        # ptxas -v: registers, shared memory and spills of each kernel
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            loaded = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(loaded, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            loaded.mdgan_cuda_error_string.argtypes = [ctypes.c_int]
+            loaded.mdgan_cuda_error_string.restype = ctypes.c_char_p
+            _lib = loaded
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        name = lib().mdgan_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({name}) at launch")

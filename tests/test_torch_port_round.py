@@ -1,0 +1,269 @@
+"""The port's MD-GAN round against ``MDGANEngine.chunk_fn(1)``, on the CPU.
+
+Narrow DCGAN-32 (ngf=ndf=8) in float32.  Both sides start from the JAX
+engine's weights (carried over by ``models/from_jax.py``) and get the same
+latents z (drawn from ``prng.for_step(key, LATENT, step)``) and the same
+sampler indices.  Bounds are those of ``tests/test_torch_parity.py:356-369``:
+losses within rtol 2e-4, feedback norm within rtol 2e-3, and parameter
+deltas sign-flip aware (one Adam step moves a weight by about lr*sign(grad),
+so elements whose gradient sits at float noise may flip: under 0.5% of
+elements, and never by more than 2.05*lr).
+"""
+
+import functools
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from mdgan_tpu.core import prng as jprng
+from mdgan_tpu.core import registry as jregistry
+from mdgan_tpu.core.config import TrainConfig as JaxTrainConfig
+from mdgan_tpu.data import builtin as jbuiltin
+from mdgan_tpu.data import partitioner as jpartitioner
+from mdgan_tpu.data import sampler as jsampler
+from mdgan_tpu.engine.mdgan import MDGANEngine as JaxEngine
+from mdgan_tpu.models import dcgan32 as jdcgan32
+from mdgan_tpu_torch.cli import train as cli
+from mdgan_tpu_torch.core.config import TrainConfig
+from mdgan_tpu_torch.core.registry import get as get_spec
+from mdgan_tpu_torch.data import builtin, partitioner, sampler
+from mdgan_tpu_torch.engine.mdgan import MDGANEngine
+from mdgan_tpu_torch.models import from_jax
+
+LR, B, WIDTH = 2e-4, 4, 8
+NARROW = "TorchPortNarrow32"
+
+
+def _narrow_jax_spec():
+    try:
+        return jregistry.get(NARROW)
+    except KeyError:
+        return jregistry.register(jregistry.DatasetSpec(
+            name=NARROW, shape=jdcgan32.SHAPE, z_dim=jdcgan32.Z_DIM,
+            make_generator=functools.partial(jdcgan32.DCGANGenerator32, ngf=WIDTH),
+            make_discriminator=functools.partial(jdcgan32.DCGANDiscriminator32, ndf=WIDTH),
+            load=lambda *a, **k: jbuiltin.synthesize((32, 32, 3), 400, seed=32),
+        ))
+
+
+class Pair:
+    """A JAX engine and the port's, on the same data and indices."""
+
+    def __init__(self, n):
+        self.n = n
+        self.jeng = JaxEngine(_narrow_jax_spec(), JaxTrainConfig(
+            batch_size=B, chunk_size=1, compute_dtype="float32", donate=False), n)
+        self.peng = MDGANEngine(get_spec("Synthetic32"), TrainConfig(
+            batch_size=B, compute_dtype="float32", device="cpu"), n,
+            model_kwargs={"ngf": WIDTH, "ndf": WIDTH})
+        data, _ = builtin.synthesize((32, 32, 3), 40 * n, seed=32)
+        shards, _ = partitioner.shard_data(data, n, iid=True, seed=0)
+        self.shard_size = shards.shape[1]
+        self.jdata = self.jeng.shard_data(shards)
+        self.pdata = self.peng.shard_data(shards)
+        self.sampler = sampler.ShardSampler(n, shards.shape[1], B, seed=0)
+        self.jst = self.jeng.init_state(seed=3)
+        self.pst = self.peng.init_state(seed=3)
+        self.carry_jax_state()
+
+    def carry_jax_state(self):
+        """Copy the JAX state (params, BN stats, Adam moments and count)
+        into the port's."""
+        for net, jnet in ((self.pst.g, self.jst.g), (self.pst.d, self.jst.d)):
+            adam = jnet.opt[0]
+            from_jax.load_net(net, jax.device_get(jnet.params), jax.device_get(jnet.stats),
+                              jax.device_get(adam.mu), jax.device_get(adam.nu),
+                              int(adam.count))
+        self.pst.step = int(self.jst.step)
+
+    def round(self):
+        """One round on both sides; returns (jax metrics, port metrics) and
+        the states before the round."""
+        idx = self.sampler.next_chunk(1)
+        kz = jprng.for_step(self.jst.key, jprng.LATENT, self.jst.step)
+        z = np.array(jax.random.normal(kz, (self.jeng.k * B, jdcgan32.Z_DIM), jnp.float32))
+        before = (self.jst, self.port_trees())
+        self.jst, jm = self.jeng.chunk_fn(1)(self.jst, self.jdata, jnp.asarray(idx))
+        pm = self.peng.step(self.pst, self.pdata, self.peng.put_indices(idx[0], self.shard_size),
+                            z=torch.from_numpy(z))
+        jm = {k: np.asarray(v)[0] for k, v in jm.items() if k != "x_eval"}
+        pm = {k: v.detach().numpy() for k, v in pm.items() if k != "x_eval"}
+        return jm, pm, before
+
+    def port_trees(self):
+        return {"g": from_jax.export_net(self.pst.g), "d": from_jax.export_net(self.pst.d)}
+
+
+def _flat(tree):
+    return np.concatenate([np.ravel(a) for a in jax.tree.leaves(tree)])
+
+
+def check_metrics(jm, pm, rtol_loss=2e-4, rtol_fb=2e-3):
+    for k in ("mean_d_loss", "g_feedback_loss"):
+        np.testing.assert_allclose(pm[k], jm[k], rtol=rtol_loss, err_msg=k)
+    np.testing.assert_allclose(pm["feedback_norm"], jm["feedback_norm"], rtol=rtol_fb)
+
+
+def check_deltas(pair, before):
+    """Per network: the port's parameter update against JAX's, sign-flip aware;
+    the first Adam moment (the gradient itself, since beta_1 = 0) and the BN
+    running statistics within float32 noise."""
+    jold, pold = before
+    pnew = pair.port_trees()
+    for name in ("g", "d"):
+        jnet_old, jnet_new = getattr(jold, name), getattr(pair.jst, name)
+        d_jax = _flat(jax.device_get(jnet_new.params)) - _flat(jax.device_get(jnet_old.params))
+        d_port = _flat(pnew[name][0]) - _flat(pold[name][0])
+        close = np.isclose(d_port, d_jax, rtol=1e-2, atol=1e-6)
+        assert 1.0 - close.mean() < 0.005, (name, 1.0 - close.mean())
+        assert np.abs(d_port - d_jax).max() <= 2.05 * LR + 1e-6, name
+        net = getattr(pair.pst, name)
+        mu_port = np.concatenate([_flat(from_jax.params_to_jax(
+            net.views(net.mu, w), from_jax.role_of(net.modules[0]))) for w in range(net.n)])
+        mu_jax = jax.device_get(jnet_new.opt[0].mu)
+        mu_jax = np.concatenate([_flat(from_jax.index_tree(mu_jax, w)) if net.n > 1
+                                 else _flat(mu_jax) for w in range(net.n)])
+        np.testing.assert_allclose(mu_port, mu_jax, rtol=1e-3, atol=1e-3 * np.abs(mu_jax).max(),
+                                   err_msg=f"{name} gradient")
+        np.testing.assert_allclose(_flat(pnew[name][1]), _flat(jax.device_get(jnet_new.stats)),
+                                   rtol=2e-5, atol=1e-6, err_msg=f"{name} BN stats")
+
+
+@pytest.fixture(scope="module", params=[2, 8], ids=["N2", "N8"])
+def pair(request):
+    return Pair(request.param)
+
+
+def test_one_round_matches_chunk_fn(pair):
+    pair.carry_jax_state()
+    jm, pm, before = pair.round()
+    check_metrics(jm, pm)
+    check_deltas(pair, before)
+
+
+def test_three_rounds_teacher_forced(pair):
+    for _ in range(3):
+        pair.carry_jax_state()
+        jm, pm, before = pair.round()
+        check_metrics(jm, pm)
+        check_deltas(pair, before)
+
+
+def test_three_rounds_free_running(pair):
+    pair.carry_jax_state()
+    for _ in range(3):
+        jm, pm, _ = pair.round()
+        check_metrics(jm, pm, rtol_loss=1e-3)
+
+
+def test_swap_matches_swap_fn(pair):
+    if pair.n % 2:
+        pytest.skip("swaps need an even worker count")
+    pair.carry_jax_state()
+    perm = pair.jeng.sample_swap_perm(np.random.default_rng(5))
+    np.testing.assert_array_equal(pair.peng.sample_swap_perm(np.random.default_rng(5)), perm)
+    jst = pair.jeng.swap_fn()(pair.jst, jnp.asarray(perm))
+    pair.peng.swap(pair.pst, perm)
+    params, stats = from_jax.export_net(pair.pst.d)
+    for got, want in ((params, jst.d.params), (stats, jst.d.stats)):
+        for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(jax.device_get(want))):
+            np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="permutation"):
+        pair.peng.swap(pair.pst, np.zeros(pair.n, np.int32))
+    # Adam moments stay with their worker (swap_opt_state=False)
+    mu = from_jax.params_to_jax(pair.pst.d.views(pair.pst.d.mu, 0), "discriminator")
+    want_mu = from_jax.index_tree(jax.device_get(pair.jst.d.opt[0].mu), 0)
+    for a, b in zip(jax.tree.leaves(mu), jax.tree.leaves(want_mu)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_sample_matches_flax_and_keeps_stats(pair):
+    from mdgan_tpu.engine import state as jstate
+    from mdgan_tpu_torch.core import prng
+
+    pair.carry_jax_state()
+    g = pair.pst.g
+    before = g.stats.clone()
+    got = pair.peng.sample(g, 6, seed=9)
+    assert torch.equal(g.stats, before)
+    gen = prng.generator(9, prng.EVAL, 0)
+    z = torch.randn(6, 100, generator=gen).numpy()
+    want, _ = jstate.apply_train(pair.jeng.g_model, pair.jst.g.params, pair.jst.g.stats,
+                                 jnp.asarray(z))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want).transpose(0, 3, 1, 2),
+                               rtol=1e-4, atol=1e-5)
+
+
+# --- the data pipeline, byte for byte --------------------------------------
+
+def test_synthesize_and_cifar_fallback_identical(tmp_path):
+    for shape, n, seed in (((32, 32, 3), 300, 32), ((28, 28, 1), 50, 28)):
+        a, la = builtin.synthesize(shape, n, seed=seed)
+        b, lb = jbuiltin.synthesize(shape, n, seed=seed)
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(la, lb)
+    a, _ = builtin.load_cifar10(str(tmp_path), max_examples=200)
+    b, _ = jbuiltin.load_cifar10(str(tmp_path), max_examples=200)
+    np.testing.assert_array_equal(a, b)
+
+
+def test_cifar_pickle_batches_identical(tmp_path):
+    import pickle
+
+    base = tmp_path / "cifar-10-batches-py"
+    base.mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(1, 6):
+        with open(base / f"data_batch_{i}", "wb") as f:
+            pickle.dump({b"data": rng.integers(0, 256, (4, 3072), dtype=np.uint8),
+                         b"labels": list(range(4))}, f)
+    a, la = builtin.load_cifar10(str(tmp_path))
+    b, lb = jbuiltin.load_cifar10(str(tmp_path))
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(la, lb)
+
+
+@pytest.mark.parametrize("iid", [True, False])
+def test_shard_data_and_sampler_identical(iid):
+    data, _ = builtin.synthesize((32, 32, 3), 203, seed=32)
+    a, ia = partitioner.shard_data(data, 4, iid=iid, seed=0)
+    b, ib = jpartitioner.shard_data(data, 4, iid=iid, seed=0)
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(ia, ib)
+    # shard of 50 with b=7 reshuffles every 7 batches: cross several epochs
+    ps, js = sampler.ShardSampler(4, 50, 7, seed=0), jsampler.ShardSampler(4, 50, 7, seed=0)
+    for t in (3, 11, 1):
+        np.testing.assert_array_equal(ps.next_chunk(t), js.next_chunk(t))
+
+
+def test_swap_perm_identical():
+    peng = MDGANEngine(get_spec("Synthetic32"), TrainConfig(batch_size=B, device="cpu"), 8,
+                       model_kwargs={"ngf": WIDTH, "ndf": WIDTH})
+    rp, rj = np.random.default_rng(11), np.random.default_rng(11)
+    for _ in range(4):
+        np.testing.assert_array_equal(peng.sample_swap_perm(rp),
+                                      JaxEngine.sample_swap_perm(peng, rj))
+
+
+def test_cli_two_rounds_full_width_on_cpu(capsys):
+    rc = cli.main(["--mode", "mdgan", "--dataset", "CIFAR10", "--num_workers", "8",
+                   "--batch_size", "10", "--epochs", "2", "--swap_interval", "1",
+                   "--log_interval", "1", "--max_examples", "800", "--device", "cpu"])
+    assert rc == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    summary = __import__("json").loads(lines[-1])
+    assert summary["rounds"] == 2 and summary["all_finite"] and summary["swaps"] == 1
+    assert summary["device"] == "cpu" and len(lines) == 3
+
+
+@pytest.mark.parametrize("flag", [["--mode", "standalone"], ["--straggler_rate", "0.1"],
+                                  ["--moment_dtype", "bfloat16"], ["--num_replicas", "2"],
+                                  ["--dataset", "MNIST"], ["--resume"]])
+def test_cli_waiting_features_raise(flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["--epochs", "1", "--device", "cpu", "--num_workers", "2",
+                  "--max_examples", "40"] + flag)

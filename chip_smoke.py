@@ -9,15 +9,24 @@ Phases, each printing one JSON line with its seconds:
   build    the one ``nvcc`` build of ``mdgan_tpu_torch/csrc/*.cu``, timed
   kernels  each CUDA kernel at the main path's shapes against its plain
            PyTorch version on the card (Adam: G arena and the 8-D arena,
-           3 steps, rtol 1e-6; sampling: the full CIFAR-10 shard stack,
-           bit-equal), with kernel, plain and library times (CUDA events)
+           3 steps, rtol 1e-6; sampling: bit-equal on the full CIFAR-10
+           shard stack at the main path's chunk T=100 and at T=1, and on
+           64x64x3, 128x128x3, 5x5x3, 2x2x3 and 3x3x16 rows, an unaligned
+           shard stack and out-of-range indices, which must give NaN rows),
+           with kernel, plain and library device times (CUDA events, the
+           host's issue hidden behind a device sleep, see
+           ``mdgan_tpu_torch.core.timing.time_ms``; a reading the host's
+           issue could reach fails the phase) and the host's issue time per
+           call
   golden   the committed JAX-trained generator through ``from_jax``: a
            train-mode forward on the card equals the CPU's (float32, TF32 off)
   round    two narrow MD-GAN rounds (N=2, width 8) on the card against the
            same rounds on the CPU (plain versions), float32, TF32 off
   mdgan    the CLI's ``main`` at the headline config (CIFAR10, N=8, b=10,
-           full width): 20 rounds with --swap_interval 10 in float32, then
-           20 in bfloat16; losses finite, launch counters read from the run
+           full width): 20 rounds with --swap_interval 10 in float32 with the
+           default --chunk_size, then 20 in bfloat16 with --chunk_size 4;
+           losses finite, launch counters read from the run: 2 Adam launches
+           a round and one sampling launch a chunk
   profile  the headline round's host time over 20 warm rounds, and its
            device time by kernel from a torch.profiler window
 
@@ -37,8 +46,6 @@ import sys
 import time
 from pathlib import Path
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
-F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 ADAM_BYTES_PER_ELEM = 28    # read p, g, mu, nu; write p, mu, nu (float32)
 ADAM_OPS_PER_ELEM = 13      # see csrc/adam.cu
 ROOT = Path(__file__).resolve().parent
@@ -66,33 +73,13 @@ def nvidia_smi() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def bound_ms(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def time_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean milliseconds of ``fn`` on the card, by CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def phase_kernels():
     """Both kernels at the main path's shapes against their plain versions."""
     import torch
 
+    from mdgan_tpu_torch.core.timing import bound_ms, time_ms
     from mdgan_tpu_torch.models.dcgan32 import DCGANDiscriminator32, DCGANGenerator32
-    from mdgan_tpu_torch.ops import adam, sampling
+    from mdgan_tpu_torch.ops import adam
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -124,40 +111,107 @@ def phase_kernels():
             adam_rec["max_rel_err"] = max(adam_rec["max_rel_err"], rel)
 
         lr_c1, inv_c2 = adam.bias_scalars(lr, b1, b2, 4)
-        k_ms = time_ms(lambda: adam.adam_update(*ker, lr_c1, inv_c2, b1, b2, eps), 50)
-        p_ms = time_ms(lambda: adam.adam_plain(*ref, lr_c1, inv_c2, b1, b2, eps), 20)
+        k_t = time_ms(lambda: adam.adam_update(*ker, lr_c1, inv_c2, b1, b2, eps), 50)
+        p_t = time_ms(lambda: adam.adam_plain(*ref, lr_c1, inv_c2, b1, b2, eps), 20)
         param = torch.nn.Parameter(start[0].clone())
         param.grad = start[1].clone()
         opt = torch.optim.Adam([param], lr=lr, betas=(b1, b2), eps=eps, fused=True)
-        l_ms = time_ms(opt.step, 50)
+        l_t = time_ms(opt.step, 50)
         b_ms, b_by = bound_ms(ADAM_BYTES_PER_ELEM * n, ADAM_OPS_PER_ELEM * n)
-        adam_rec["arenas"][name] = {"elements": n, "ms": k_ms, "plain_ms": p_ms,
-                                    "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by}
-        adam_rec["ms"] += k_ms
-        adam_rec["plain_ms"] += p_ms
-        adam_rec["library_ms"] += l_ms
+        adam_rec["arenas"][name] = {"elements": n, "ms": k_t["ms"], "plain_ms": p_t["ms"],
+                                    "library_ms": l_t["ms"], "bound_ms": b_ms, "bound_by": b_by,
+                                    "share_of_bound": b_ms / k_t["ms"],
+                                    "host_us_per_call": k_t["host_us_per_call"]}
+        adam_rec["ms"] += k_t["ms"]
+        adam_rec["plain_ms"] += p_t["ms"]
+        adam_rec["library_ms"] += l_t["ms"]
         adam_rec["bound_ms"] += b_ms
         adam_rec["bytes"] += ADAM_BYTES_PER_ELEM * n
         adam_rec["bound_by"] = b_by
         del start, ker, ref, param, opt
-
-    shards = torch.randint(0, 256, (8, 6250, 32, 32, 3), dtype=torch.uint8,
-                           generator=gen, device=dev)
-    idx = torch.randint(0, 6250, (8, 10), dtype=torch.int32, generator=gen, device=dev)
-    out_k = sampling.sample_normalize(shards, idx)
-    out_p = sampling.sample_normalize_plain(shards, idx)
-    torch.cuda.synchronize()
-    require(out_k.shape == (8, 10, 3, 32, 32), f"sampling shape {tuple(out_k.shape)}")
-    require(torch.equal(out_k, out_p), "sampling kernel differs from its plain version")
-    s_bytes = idx.numel() * (3072 + 3072 * 4) + idx.numel() * 4
-    s_bound, s_by = bound_ms(s_bytes, 2 * idx.numel() * 3072)
-    samp_rec = {"ms": time_ms(lambda: sampling.sample_normalize(shards, idx), 200),
-                "plain_ms": time_ms(lambda: sampling.sample_normalize_plain(shards, idx), 50),
-                "library_ms": None, "bytes": s_bytes, "bound_ms": s_bound, "bound_by": s_by,
-                "max_abs_err": float((out_k - out_p).abs().max())}
-    del shards
+    adam_rec["share_of_bound"] = adam_rec["bound_ms"] / adam_rec["ms"]
     torch.cuda.empty_cache()
-    return adam_rec, samp_rec
+    return adam_rec, phase_sampling(gen)
+
+
+def phase_sampling(gen):
+    """The sampling kernel bit-equal to its plain version at the main path's
+    chunk, one round, larger and odd rows, an unaligned shard stack and
+    out-of-range indices; timed at the chunk and at one round."""
+    import torch
+
+    from mdgan_tpu_torch.core.timing import bound_ms, time_ms
+    from mdgan_tpu_torch.ops import sampling
+
+    dev = torch.device("cuda")
+
+    def shards_of(n, s, shape, offset=0):
+        numel = n * s * shape[0] * shape[1] * shape[2]
+        buf = torch.randint(0, 256, (numel + offset,), dtype=torch.uint8, generator=gen,
+                            device=dev)
+        return buf[offset:].view(n, s, *shape)
+
+    def indices(t, n, b, s):
+        return torch.randint(0, s, (t, n, b), dtype=torch.int32, generator=gen, device=dev)
+
+    def check(name, shards, idx, bad=None):
+        """Kernel against plain on the same inputs; ``bad`` marks rows whose
+        index is out of range: NaN from the kernel, and left out of the
+        comparison (the plain gather would fault on them)."""
+        out_k = sampling.sample_normalize(shards, idx)
+        good_idx = idx if bad is None else torch.where(bad, 0, idx)
+        out_p = sampling.sample_normalize_plain(shards, good_idx)
+        torch.cuda.synchronize()
+        h, w, c = shards.shape[2:]
+        require(out_k.shape == (*idx.shape, c, h, w), f"sampling {name}: shape {tuple(out_k.shape)}")
+        if bad is not None:
+            require(bool(torch.isnan(out_k[bad]).all()), f"sampling {name}: bad rows not NaN")
+            require(not bool(torch.isnan(out_k[~bad]).any()), f"sampling {name}: NaN in good rows")
+            out_k, out_p = out_k[~bad], out_p[~bad]
+        require(torch.equal(out_k, out_p), f"sampling {name}: kernel differs from plain")
+        return {"idx": list(idx.shape), "row": [h, w, c], "bit_equal": True,
+                "max_abs_err": float((out_k - out_p).abs().max()) if out_k.numel() else 0.0}
+
+    cifar = shards_of(8, 6250, (32, 32, 3))
+    cases = {
+        "chunk_T100": check("chunk_T100", cifar, indices(100, 8, 10, 6250)),
+        "round_T1": check("round_T1", cifar, indices(1, 8, 10, 6250)),
+        "rows_64x64x3": check("rows_64x64x3", shards_of(8, 200, (64, 64, 3)),
+                              indices(5, 8, 10, 200)),
+        "rows_128x128x3": check("rows_128x128x3", shards_of(2, 20, (128, 128, 3)),
+                                indices(3, 2, 4, 20)),
+        "rows_5x5x3": check("rows_5x5x3", shards_of(2, 50, (5, 5, 3)), indices(3, 2, 4, 50)),
+        "rows_2x2x3": check("rows_2x2x3", shards_of(2, 50, (2, 2, 3)), indices(3, 2, 4, 50)),
+        "rows_3x3x16": check("rows_3x3x16", shards_of(2, 50, (3, 3, 16)), indices(3, 2, 4, 50)),
+        "unaligned_base": check("unaligned_base", shards_of(8, 500, (32, 32, 3), offset=1),
+                                indices(10, 8, 10, 500)),
+        "round_idx_2d": check("round_idx_2d", cifar, indices(1, 8, 10, 6250)[0]),
+    }
+    idx = indices(10, 8, 10, 6250)
+    bad = torch.zeros(idx.shape, dtype=torch.bool, device=dev)
+    for pos, value in (((0, 0, 0), -1), ((3, 7, 9), 6250), ((9, 2, 5), 2 ** 31 - 1)):
+        idx[pos], bad[pos] = value, True
+    cases["out_of_range"] = check("out_of_range", cifar, idx, bad)
+
+    timed = {}
+    for name, t in (("chunk_T100", 100), ("round_T1", 1)):
+        pool = [indices(t, 8, 10, 6250) for _ in range(8)]  # fresh rows each call
+        it = iter(range(10 ** 9))
+        k_t = time_ms(lambda: sampling.sample_normalize(cifar, pool[next(it) % 8]), 20)
+        p_t = time_ms(lambda: sampling.sample_normalize_plain(cifar, pool[next(it) % 8]), 10)
+        rows = t * 80
+        nbytes = rows * (4 + 3072 + 4 * 3072)  # read each index and row, write float32 once
+        b_ms, b_by = bound_ms(nbytes, 2 * rows * 3072)
+        timed[name] = {"rows": rows, "bytes": nbytes, "ms": k_t["ms"], "plain_ms": p_t["ms"],
+                       "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / k_t["ms"],
+                       "host_us_per_call": k_t["host_us_per_call"]}
+    del cifar
+    torch.cuda.empty_cache()
+    main = timed["chunk_T100"]
+    return {"ms": main["ms"], "plain_ms": main["plain_ms"], "library_ms": None,
+            "bytes": main["bytes"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            "timed": timed, "cases": cases}
 
 
 def phase_golden():
@@ -237,8 +291,23 @@ def run_main(argv):
     return json.loads(lines[-1]), [json.loads(ln) for ln in lines[:-1]]
 
 
+def cli_chunks(rounds: int, swap_interval: int, log_interval: int, chunk: int):
+    """The chunk lengths the CLI runs: a run ends at every log round, every
+    swap round after 0 and the last round, and splits into chunks of at most
+    ``chunk`` rounds (``mdgan_tpu/engine/train_loop.py:625``)."""
+    events = [e for e in range(rounds) if e % log_interval == 0 or e == rounds - 1
+              or (e > 0 and e % swap_interval == 0)]
+    out, cur = [], 0
+    for e in events:
+        while cur <= e:
+            out.append(min(chunk, e - cur + 1))
+            cur += out[-1]
+    return out
+
+
 def phase_mdgan(rounds: int = 20):
-    """The headline config through the CLI, float32 then bfloat16."""
+    """The headline config through the CLI, float32 with the default chunk
+    size, then bfloat16 with chunks of 4: one sampling launch per chunk."""
     from mdgan_tpu_torch.ops import adam, sampling
 
     base = ["--mode", "mdgan", "--dataset", "CIFAR10", "--num_workers", "8",
@@ -247,22 +316,24 @@ def phase_mdgan(rounds: int = 20):
     adam.adam_update.launches = 0
     sampling.sample_normalize.launches = 0
     runs, prev = {}, (0, 0)
-    for dtype in ("float32", "bfloat16"):
-        summary, logs = run_main(base + ["--compute_dtype", dtype])
+    for dtype, chunk in (("float32", 100), ("bfloat16", 4)):
+        summary, logs = run_main(base + ["--compute_dtype", dtype, "--chunk_size", str(chunk)])
         now = (adam.adam_update.launches, sampling.sample_normalize.launches)
         launched = (now[0] - prev[0], now[1] - prev[1])
         prev = now
+        chunks = cli_chunks(rounds, 10, 10, chunk)
         require(summary["all_finite"], f"{dtype}: non-finite metrics")
         require(summary["swaps"] == (rounds - 1) // 10,
                 f"{dtype}: {summary['swaps']} swaps, want {(rounds - 1) // 10}")
-        require(launched == (2 * rounds, rounds),
+        require(launched == (2 * rounds, len(chunks)),
                 f"{dtype}: launches adam={launched[0]} (want {2 * rounds}), "
-                f"sampling={launched[1]} (want {rounds})")
+                f"sampling={launched[1]} (want {len(chunks)}, one per chunk {chunks})")
         r0, r1 = logs[-2], logs[-1]  # rounds 10 and 19: past the warm-up
         summary["steady_rounds_per_s"] = ((r1["round"] - r0["round"])
                                           / (r1["elapsed_s"] - r0["elapsed_s"]))
-        runs[dtype] = {**summary, "adam_launches": launched[0],
-                       "sampling_launches": launched[1], "log": logs}
+        runs[dtype] = {**summary, "chunk_size": chunk, "chunks": chunks,
+                       "adam_launches": launched[0], "sampling_launches": launched[1],
+                       "log": logs}
     return runs, {"adam": prev[0], "sampling": prev[1]}
 
 

@@ -3,19 +3,21 @@
 The same flag surface as the JAX CLI, plus ``--device`` (default ``cuda``;
 ``--device cpu`` runs the plain PyTorch versions of the kernels).  The host
 loop is a minimal port of ``MDGANTrainer.train`` (``engine/train_loop.py``):
-rounds in runs clipped at swap and log boundaries, a pair swap every
+rounds in chunks of at most ``--chunk_size``, clipped at swap and log
+boundaries as ``train_loop.py:625`` clips them, a pair swap every
 ``--swap_interval`` rounds from ``np.random.default_rng(seed)``, and one JSON
 line of metrics every ``--log_interval`` rounds and at the last round.  It
-ends by printing a JSON summary.
+ends by printing a JSON summary.  A chunk is the span of one real-batch
+gather: one sampling launch covers all its rounds.
 
 Usage:
     python -m mdgan_tpu_torch.cli.train --mode mdgan --dataset CIFAR10 \
         --num_workers 8 --batch_size 10 --epochs 30000 --swap_interval 5000
 
-Flags that name TPU machinery (``--chunk_size``, ``--scan_unroll``,
-``--metrics_flush``, ``--no_pallas``, ``--fused_adam``, ``--pallas_sampling``)
-are accepted and change nothing: on a CUDA device Adam and sampling always
-run through the CUDA kernels.  Span CSVs, weight exports and checkpoints
+Flags that name TPU machinery (``--scan_unroll``, ``--metrics_flush``,
+``--no_pallas``, ``--fused_adam``, ``--pallas_sampling``) are accepted and
+change nothing: on a CUDA device Adam and sampling always run through the
+CUDA kernels.  Span CSVs, weight exports and checkpoints
 (``--log_dir``, ``--weights_dir``, ``--checkpoint_*``) are not written yet
 (ROADMAP.md A.2, A.3).
 """
@@ -64,7 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_dir", type=str, default="data")
     p.add_argument("--download", action="store_true")
     p.add_argument("--max_examples", type=int, default=None)
-    p.add_argument("--chunk_size", type=int, default=100)
+    p.add_argument("--chunk_size", type=int, default=100,
+                   help="most rounds per chunk (one real-batch gather each)")
     p.add_argument("--metrics_flush", type=int, default=8)
     p.add_argument("--scan_unroll", type=int, default=1)
     p.add_argument("--compute_dtype", choices=["bfloat16", "float32"], default="bfloat16")
@@ -154,6 +157,8 @@ def train(cfg: RunConfig) -> dict:
     from mdgan_tpu_torch.engine.mdgan import MDGANEngine
 
     tc, n = cfg.train, cfg.mesh.num_workers
+    if tc.chunk_size < 1:
+        raise ValueError(f"chunk_size must be at least 1, got {tc.chunk_size}")
     if n > 1 and tc.swap_interval > 0 and n % 2 != 0:
         raise ValueError(f"num_workers={n} must be even when discriminator swaps "
                          "are enabled (set --swap_interval 0 to disable)")
@@ -179,15 +184,16 @@ def train(cfg: RunConfig) -> dict:
     finite = torch.ones((), dtype=torch.bool, device=dev)  # read once, at the end
     while cur < tc.epochs:
         e = next_event(cur, tc.epochs, tc.swap_interval, tc.log_interval, n)
-        m = engine.run_rounds(st, shards, sampler, e - cur + 1)
-        cur = e + 1
+        clen = min(tc.chunk_size, e - cur + 1, tc.epochs - cur)
+        m = engine.run_rounds(st, shards, sampler, clen)
+        end, cur = cur + clen - 1, cur + clen  # end: the chunk's last round
         for key in ("mean_d_loss", "g_feedback_loss", "feedback_norm"):
             finite &= torch.isfinite(m[key]).all()
-        if n > 1 and tc.swap_interval > 0 and e > 0 and e % tc.swap_interval == 0:
+        if n > 1 and tc.swap_interval > 0 and end > 0 and end % tc.swap_interval == 0:
             engine.swap(st, engine.sample_swap_perm(swap_rng))
             swaps += 1
-        if (tc.log_interval > 0 and e % tc.log_interval == 0) or e == tc.epochs - 1:
-            last = {"round": e,
+        if (tc.log_interval > 0 and end % tc.log_interval == 0) or end == tc.epochs - 1:
+            last = {"round": end,
                     "mean_d_loss": float(m["mean_d_loss"][-1].mean()),
                     "g_feedback_loss": float(m["g_feedback_loss"][-1].mean()),
                     "feedback_norm": float(m["feedback_norm"][-1])}

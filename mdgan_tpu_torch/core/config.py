@@ -7,8 +7,10 @@ package, so a flag means the same thing on both sides.  Added: ``device`` on
 Fields that name TPU machinery keep their names for compatibility but change
 meaning here: on a CUDA device Adam and the real-batch sampling ALWAYS run
 through the CUDA kernels of ``ops/`` whatever ``use_pallas``, ``fused_adam``
-and ``pallas_sampling`` say; ``chunk_size``, ``scan_unroll``,
-``metrics_flush`` and ``donate`` have no effect on an eager PyTorch run.
+and ``pallas_sampling`` say; ``scan_unroll``, ``metrics_flush`` and
+``donate`` have no effect on an eager PyTorch run.  ``chunk_size`` means what
+it means in JAX: the most rounds the host loop runs as one chunk, here the
+span of one real-batch gather (one sampling launch per chunk).
 """
 
 from __future__ import annotations

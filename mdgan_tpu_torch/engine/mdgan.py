@@ -8,8 +8,9 @@ Per round (``MDGANEngine._step``, ``:392-483``, with ``_d_region``,
     the graph is kept for the one G backward of step 5.
  2. **Distribute**: worker n trains on batch ``(n+1) % k`` and gives feedback
     on batch ``n % k``.
- 3. **Local D training**: each worker gathers and normalizes its real batch
-    (the sampling kernel, once per round) and takes ``local_epochs`` Adam
+ 3. **Local D training**: each worker takes its real batch (gathered and
+    normalized by the sampling kernel, once per chunk of rounds in
+    :meth:`MDGANEngine.run_rounds`) and takes ``local_epochs`` Adam
     steps on ``BCE(D(real), 1) + BCE(D(X_d), 0)`` — two sequential train-mode
     forwards, each with its own batch statistics.  One Adam launch updates
     all N discriminators.
@@ -134,6 +135,11 @@ class MDGANEngine:
         (N,), ``feedback_norm`` () and ``x_eval`` (k*b, C, H, W), the images
         of the pre-update generator.
         """
+        return self._round(st, sample_normalize(data, idx), z)
+
+    def _round(self, st: MDGANState, real: torch.Tensor,
+               z: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The round's body on its real batch ``real``, (N, b, C, H, W) float32."""
         cfg, n, k, b = self.cfg, self.n, self.k, self.cfg.batch_size
         if z is None:
             z = self.latents(st)
@@ -147,7 +153,6 @@ class MDGANEngine:
 
         # (2) fake batches per worker, (3) real batches and local D steps
         x_d = x_k[self._d_assign]
-        real = sample_normalize(data, idx)
         d_loss_sum = torch.zeros(n, device=self.device)
         for _ in range(cfg.local_epochs):
             st.d.zero_grad()
@@ -180,14 +185,22 @@ class MDGANEngine:
             "x_eval": x_k.reshape(k * b, *img_shape),
         }
 
-    def run_rounds(self, st: MDGANState, data: torch.Tensor, sampler,
-                   num_rounds: int) -> Dict[str, torch.Tensor]:
-        """``num_rounds`` rounds with indices from ``sampler`` (the analogue
-        of ``chunk_fn``): metrics stacked on a leading round axis, except
-        ``x_eval``, which is the last round's."""
+    def run_rounds(self, st: MDGANState, data: torch.Tensor, sampler, num_rounds: int,
+                   z: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """One chunk of ``num_rounds`` rounds with indices from ``sampler``
+        (the analogue of ``chunk_fn``): metrics stacked on a leading round
+        axis, except ``x_eval``, which is the last round's.
+
+        The chunk's real batches are gathered in one sampling launch,
+        (T, N, b, C, H, W): the shards are read-only during a chunk, so this
+        equals a gather per round.  z: optional (T, k*b, z_dim) latents.
+        """
+        if z is not None and z.shape[0] != num_rounds:
+            raise ValueError(f"z holds {z.shape[0]} rounds of latents, want {num_rounds}")
         idx = self.put_indices(sampler.next_chunk(num_rounds), data.shape[1])
-        out: List[Dict[str, torch.Tensor]] = [self.step(st, data, idx[t])
-                                              for t in range(num_rounds)]
+        real = sample_normalize(data, idx)
+        out: List[Dict[str, torch.Tensor]] = [
+            self._round(st, real[t], None if z is None else z[t]) for t in range(num_rounds)]
         stacked = {key: torch.stack([m[key] for m in out])
                    for key in ("mean_d_loss", "g_feedback_loss", "feedback_norm")}
         stacked["x_eval"] = out[-1]["x_eval"]

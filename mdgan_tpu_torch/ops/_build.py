@@ -37,8 +37,8 @@ _c_void_p, _c_int, _c_int64, _c_float = (ctypes.c_void_p, ctypes.c_int,
 # C signatures of csrc/*.cu's extern "C" functions (all return cudaError_t as int)
 SIGNATURES = {
     "mdgan_adam_f32": [_c_void_p] * 4 + [_c_int64] + [_c_float] * 7 + [_c_void_p],
-    "mdgan_sample_normalize_u8": [_c_void_p] * 3 + [_c_int, _c_int64, _c_int, _c_int,
-                                                    _c_int, _c_void_p],
+    "mdgan_sample_normalize_u8": [_c_void_p] * 3 + [_c_int64, _c_int, _c_int, _c_int64,
+                                                    _c_int, _c_int, _c_void_p],
 }
 
 _lock = threading.Lock()
@@ -70,25 +70,26 @@ def find_nvcc() -> Path:
         "CUDA kernels are built with: " + " ".join(command(Path("nvcc"), library_path())))
 
 
-def source_hash() -> str:
+def source_hash(sources=SOURCES) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in sources:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libmdgan_kernels_{source_hash()}.so"
+def library_path(stem: str = "mdgan_kernels", sources=SOURCES) -> Path:
+    return BUILD_DIR / f"lib{stem}_{source_hash(sources)}.so"
 
 
-def command(nvcc: Path, out: Path) -> List[str]:
-    return [str(nvcc), *NVCC_FLAGS, "-o", str(out), *(str(CSRC / s) for s in SOURCES)]
+def command(nvcc: Path, out: Path, sources=SOURCES) -> List[str]:
+    return [str(nvcc), *NVCC_FLAGS, "-o", str(out), *(str(CSRC / s) for s in sources)]
 
 
-def build() -> Path:
-    """Compile the library unless a current one exists; return its path."""
-    out = library_path()
+def build(stem: str = "mdgan_kernels", sources=SOURCES) -> Path:
+    """Compile ``sources`` (names under ``csrc/``) into ``lib<stem>_<hash>.so``
+    unless a current one exists; return its path."""
+    out = library_path(stem, sources)
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -97,7 +98,7 @@ def build() -> Path:
     # build never leaves a half-written library under the final name
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = command(nvcc, Path(tmp))
+    cmd = command(nvcc, Path(tmp), sources)
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

@@ -92,6 +92,25 @@ def test_sampling_plain_matches_pallas_bit_equal():
     assert sampling.sample_normalize.launches == 0
 
 
+@pytest.mark.parametrize("t,shape", [(4, (32, 32, 3)), (3, (8, 8, 2))], ids=["cifar", "row128"])
+def test_sampling_chunk_plain_matches_stacked_pallas_bit_equal(t, shape):
+    """(T, N, b) indices: one plain gather equals T stacked Pallas calls."""
+    rng = np.random.default_rng(4)
+    data = rng.integers(0, 256, (3, 40, *shape), dtype=np.uint8)
+    idx = rng.integers(0, 40, (t, 3, 5)).astype(np.int32)
+    want = np.stack([np.asarray(jax_sample_normalize(jnp.asarray(data), jnp.asarray(idx[r])))
+                     for r in range(t)])
+    h, w, c = shape
+    want = want.reshape(t, 3, 5, h, w, c).transpose(0, 1, 2, 5, 3, 4)
+    shards, tidx = torch.from_numpy(data), torch.from_numpy(idx)
+    plain = sampling.sample_normalize_plain(shards, tidx)
+    got = sampling.sample_normalize(shards, tidx)
+    assert got.shape == (t, 3, 5, c, h, w) and got.dtype == torch.float32
+    np.testing.assert_array_equal(plain.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert sampling.sample_normalize.launches == 0
+
+
 def _arena(n=64):
     return [torch.zeros(n) for _ in range(4)]
 
@@ -127,6 +146,17 @@ def test_sampling_wrapper_rejects(bad):
         sampling.sample_normalize(shards, idx)
 
 
+@pytest.mark.parametrize("bad", ["workers", "dtype", "noncontiguous", "ndim"])
+def test_sampling_wrapper_rejects_chunk_idx(bad):
+    shards = torch.zeros(2, 4, 2, 2, 3, dtype=torch.uint8)
+    idx = {"workers": torch.zeros(5, 3, 3, dtype=torch.int32),
+           "dtype": torch.zeros(5, 2, 3, dtype=torch.int64),
+           "noncontiguous": torch.zeros(5, 2, 6, dtype=torch.int32)[..., ::2],
+           "ndim": torch.zeros(1, 5, 2, 3, dtype=torch.int32)}[bad]
+    with pytest.raises(ValueError):
+        sampling.sample_normalize(shards, idx)
+
+
 def test_build_command_and_missing_nvcc(monkeypatch, tmp_path):
     cmd = _build.command(tmp_path / "nvcc", tmp_path / "lib.so")
     for flag in ("arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-fPIC"):
@@ -146,3 +176,16 @@ def test_library_name_tracks_sources(monkeypatch, tmp_path):
     assert before.parent == _build.BUILD_DIR and _build.source_hash() in before.name
     (tmp_path / _build.SOURCES[0]).write_bytes(b"// changed\n")
     assert _build.library_path() != before
+
+
+def test_sampling_baselines_build_apart_from_the_kernels(tmp_path):
+    from mdgan_tpu_torch.cli import bench_sampling
+
+    main = _build.library_path()
+    base = _build.library_path("mdgan_baselines", bench_sampling.BASELINES)
+    assert base.parent == main.parent and base != main
+    assert base.name.startswith("libmdgan_baselines_")
+    cmd = _build.command(tmp_path / "nvcc", base, bench_sampling.BASELINES)
+    assert [c for c in cmd if c.endswith(".cu")] == [
+        str(_build.CSRC / "baselines" / "sampling_baselines.cu")]
+    assert "#include <torch" not in (_build.CSRC / bench_sampling.BASELINES[0]).read_text()

@@ -160,6 +160,71 @@ def test_three_rounds_free_running(pair):
         check_metrics(jm, pm, rtol_loss=1e-3)
 
 
+class _Fixed:
+    """A sampler that hands out given (T, N, b) indices."""
+
+    def __init__(self, idx):
+        self.idx = idx
+
+    def next_chunk(self, num_steps):
+        assert num_steps == len(self.idx)
+        return self.idx
+
+
+def test_run_rounds_matches_chunk_fn(pair):
+    """One port chunk of 3 rounds (one gather) against JAX's fused
+    ``chunk_fn(3)``, with JAX's latents injected."""
+    t = 3
+    pair.carry_jax_state()
+    idx = pair.sampler.next_chunk(t)
+    step0 = int(pair.jst.step)
+    z = np.stack([np.array(jax.random.normal(jprng.for_step(pair.jst.key, jprng.LATENT, step0 + r),
+                                             (pair.jeng.k * B, jdcgan32.Z_DIM), jnp.float32))
+                  for r in range(t)])
+    pair.jst, jm = pair.jeng.chunk_fn(t)(pair.jst, pair.jdata, jnp.asarray(idx))
+    pm = pair.peng.run_rounds(pair.pst, pair.pdata, _Fixed(idx), t, z=torch.from_numpy(z))
+    assert pair.pst.step == int(pair.jst.step) == step0 + t
+    for r in range(t):
+        check_metrics({k: np.asarray(v)[r] for k, v in jm.items() if k != "x_eval"},
+                      {k: v[r].detach().numpy() for k, v in pm.items() if k != "x_eval"},
+                      rtol_loss=1e-3)
+    np.testing.assert_allclose(pm["x_eval"].numpy(),
+                               np.asarray(jm["x_eval"]).transpose(0, 3, 1, 2),
+                               rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("latents", ["lanes", "injected"])
+@pytest.mark.parametrize("n", [2, 8])
+def test_run_rounds_equals_step_calls_bit_equal(n, latents):
+    """A chunk gathered once equals the same rounds gathered one by one."""
+    t = 3
+    eng = MDGANEngine(get_spec("Synthetic32"), TrainConfig(
+        batch_size=B, compute_dtype="float32", device="cpu"), n,
+        model_kwargs={"ngf": WIDTH, "ndf": WIDTH})
+    shards, _ = partitioner.shard_data(builtin.synthesize((32, 32, 3), 40 * n, seed=32)[0], n,
+                                       iid=True, seed=0)
+    data = eng.shard_data(shards)
+    idx = sampler.ShardSampler(n, shards.shape[1], B, seed=0).next_chunk(t)
+    z = None
+    if latents == "injected":
+        z = torch.from_numpy(np.random.default_rng(7).standard_normal(
+            (t, eng.k * B, 100), np.float32))
+    st_chunk, st_steps = eng.init_state(3), eng.init_state(3)
+    chunk = eng.run_rounds(st_chunk, data, _Fixed(idx), t, z=z)
+    steps = [eng.step(st_steps, data, eng.put_indices(idx[r], shards.shape[1]),
+                      z=None if z is None else z[r]) for r in range(t)]
+    for key in ("mean_d_loss", "g_feedback_loss", "feedback_norm"):
+        assert torch.equal(chunk[key], torch.stack([m[key] for m in steps])), key
+    assert torch.equal(chunk["x_eval"], steps[-1]["x_eval"])
+    assert st_chunk.step == st_steps.step == t
+    for name in ("g", "d"):
+        a, b = getattr(st_chunk, name), getattr(st_steps, name)
+        for arena in ("params", "stats", "mu", "nu"):
+            assert torch.equal(getattr(a, arena), getattr(b, arena)), (name, arena)
+    with pytest.raises(ValueError, match="rounds of latents"):
+        eng.run_rounds(st_chunk, data, _Fixed(idx), t, z=torch.zeros(t - 1, eng.k * B, 100))
+
+
 def test_swap_matches_swap_fn(pair):
     if pair.n % 2:
         pytest.skip("swaps need an even worker count")
@@ -258,6 +323,44 @@ def test_cli_two_rounds_full_width_on_cpu(capsys):
     summary = __import__("json").loads(lines[-1])
     assert summary["rounds"] == 2 and summary["all_finite"] and summary["swaps"] == 1
     assert summary["device"] == "cpu" and len(lines) == 3
+
+
+def _cli_lines(capsys, chunk_size):
+    """The CLI's printed lines without their clock readings."""
+    rc = cli.main(["--mode", "mdgan", "--dataset", "CIFAR10", "--num_workers", "2",
+                   "--batch_size", "4", "--epochs", "5", "--swap_interval", "3",
+                   "--log_interval", "4", "--max_examples", "200", "--device", "cpu",
+                   "--compute_dtype", "float32", "--chunk_size", str(chunk_size)])
+    assert rc == 0
+    lines = [__import__("json").loads(ln) for ln in capsys.readouterr().out.strip().splitlines()]
+    for line in lines:
+        for key in ("elapsed_s", "seconds", "rounds_per_s"):
+            line.pop(key, None)
+    return lines
+
+
+def test_cli_chunk_size_changes_no_metric(capsys, monkeypatch):
+    """Chunks of 2 rounds ([0], [1, 2], [3], [4]: clipped at the log event
+    of round 0, the swap after round 3 and the last round) print what one
+    chunk per event run ([0], [1, 2, 3], [4]) prints."""
+    chunks = []
+    run_rounds = MDGANEngine.run_rounds
+
+    def recording(self, st, data, sampler_, num_rounds, z=None):
+        chunks.append(num_rounds)
+        return run_rounds(self, st, data, sampler_, num_rounds, z)
+
+    monkeypatch.setattr(MDGANEngine, "run_rounds", recording)
+    small = _cli_lines(capsys, 2)
+    assert chunks == [1, 2, 1, 1]
+    chunks.clear()
+    large = _cli_lines(capsys, 100)
+    assert chunks == [1, 3, 1]
+    assert [ln.get("round") for ln in small[:-1]] == [0, 4]
+    assert small[-1]["swaps"] == 1 and small[-1]["all_finite"]
+    assert small == large
+    with pytest.raises(ValueError, match="chunk_size"):
+        _cli_lines(capsys, 0)
 
 
 @pytest.mark.parametrize("flag", [["--mode", "standalone"], ["--straggler_rate", "0.1"],

@@ -17,10 +17,14 @@ no GPU present they raise.
 Layout (mirrors ``mdgan_tpu``):
     core/      config dataclasses, dataset registry, random lanes, device choice
     data/      CIFAR-10 / synthetic loaders, partitioner, sampler
-    models/    DCGAN-32, flax-convention BatchNorm, JAX weight import
+    models/    DCGAN-32, flax-convention BatchNorm, JAX weight import/export
     ops/       losses and the CUDA kernel wrappers (+ their build)
-    engine/    arena-backed network state, the MD-GAN round
-    cli/       the train entry point
+    engine/    arena-backed network state, the MD-GAN and standalone rounds,
+               the trainers (host loop, evals, exports, checkpoints)
+    metrics/   InceptionV3, FID and IS
+    obs/       span CSVs, image grids, host monitor
+    utils/     checkpoints and weight exports
+    cli/       the train entry point, Inception weight conversion
 
 This package imports neither JAX nor any module of ``mdgan_tpu``.
 """
@@ -36,6 +40,9 @@ def __getattr__(name):
         "MeshConfig": "mdgan_tpu_torch.core.config",
         "RunConfig": "mdgan_tpu_torch.core.config",
         "MDGANEngine": "mdgan_tpu_torch.engine.mdgan",
+        "StandaloneEngine": "mdgan_tpu_torch.engine.standalone",
+        "MDGANTrainer": "mdgan_tpu_torch.engine.train_loop",
+        "StandaloneTrainer": "mdgan_tpu_torch.engine.train_loop",
         "get_dataset": "mdgan_tpu_torch.core.registry",
     }
     if name in lazy:

@@ -1,36 +1,34 @@
 """Training CLI (port of ``mdgan_tpu/cli/train.py:28-206``).
 
 The same flag surface as the JAX CLI, plus ``--device`` (default ``cuda``;
-``--device cpu`` runs the plain PyTorch versions of the kernels).  The host
-loop is a minimal port of ``MDGANTrainer.train`` (``engine/train_loop.py``):
-rounds in chunks of at most ``--chunk_size``, clipped at swap and log
-boundaries as ``train_loop.py:625`` clips them, a pair swap every
-``--swap_interval`` rounds from ``np.random.default_rng(seed)``, and one JSON
-line of metrics every ``--log_interval`` rounds and at the last round.  It
-ends by printing a JSON summary.  A chunk is the span of one real-batch
-gather: one sampling launch covers all its rounds.
+``--device cpu`` runs the plain PyTorch versions of the kernels).
+``--mode mdgan`` runs ``MDGANTrainer`` and ``--mode standalone``
+``StandaloneTrainer`` (``engine/train_loop.py``), as
+``mdgan_tpu/cli/train.py:179-201`` does: span CSVs under ``--log_dir``,
+image grids under ``--image_dir``, npz weight exports under
+``--weights_dir``, full-state checkpoints under ``--checkpoint_dir``
+(``--resume`` continues from the latest), FID/IS at every log event.  It
+prints one JSON line of metrics per log event and ends with a JSON summary.
 
 Usage:
     python -m mdgan_tpu_torch.cli.train --mode mdgan --dataset CIFAR10 \
         --num_workers 8 --batch_size 10 --epochs 30000 --swap_interval 5000
+    python -m mdgan_tpu_torch.cli.train --mode standalone --dataset CIFAR10 \
+        --batch_size 10 --epochs 30000
 
-Flags that name TPU machinery (``--scan_unroll``, ``--metrics_flush``,
-``--no_pallas``, ``--fused_adam``, ``--pallas_sampling``) are accepted and
-change nothing: on a CUDA device Adam and sampling always run through the
-CUDA kernels.  Span CSVs, weight exports and checkpoints
-(``--log_dir``, ``--weights_dir``, ``--checkpoint_*``) are not written yet
-(ROADMAP.md A.2, A.3).
+Flags that name TPU machinery (``--scan_unroll``, ``--no_pallas``,
+``--fused_adam``, ``--pallas_sampling``) are accepted and change nothing: on
+a CUDA device Adam and sampling always run through the CUDA kernels.
+``--profile_dir`` writes a ``torch.profiler`` trace of the first chunks
+(``trace.json``); ``--host_metrics`` samples host cpu/mem/net to a CSV.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import math
-import time
-
-import numpy as np
-import torch
+import logging
+from pathlib import Path
 
 from mdgan_tpu_torch.core.config import (
     DataConfig, MeshConfig, OptimizerConfig, RunConfig, TrainConfig,
@@ -92,15 +90,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 # flags whose feature waits for a later slice -> the ROADMAP item
 _NOT_PORTED = [
-    (lambda a: a.mode == "standalone", "--mode standalone", "ROADMAP.md A.1"),
     (lambda a: a.num_replicas > 1 or a.num_tensor > 1,
      "--num_replicas/--num_tensor > 1", "ROADMAP.md A.8"),
-    (lambda a: a.eval_n_samples > 0 or a.sync_eval, "FID/IS eval", "ROADMAP.md A.4"),
-    (lambda a: a.resume, "--resume (checkpoints)", "ROADMAP.md A.3"),
     (lambda a: a.download, "--download", "ROADMAP.md A.9"),
-    (lambda a: a.profile_dir or a.host_metrics,
-     "--profile_dir/--host_metrics (host loop observability)", "ROADMAP.md A.2"),
 ]
+# chunks of the run that --profile_dir traces, after one warm-up chunk
+_PROFILED_CHUNKS = 3
 
 
 def config_from_args(args: argparse.Namespace) -> RunConfig:
@@ -135,87 +130,47 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
     return RunConfig(train=train, data=data, mesh=mesh, mode=args.mode)
 
 
-def next_event(cur: int, epochs: int, swap_interval: int, log_interval: int,
-               n_workers: int) -> int:
-    """Smallest round e >= cur whose end triggers a host event
-    (``train_loop.py:54-70``, without checkpoints)."""
-    candidates = [epochs - 1]
-    if n_workers > 1 and swap_interval > 0:
-        nxt = ((cur + swap_interval - 1) // swap_interval) * swap_interval
-        candidates.append(nxt if nxt > 0 else swap_interval)
-    if log_interval > 0:
-        candidates.append(((cur + log_interval - 1) // log_interval) * log_interval)
-    return min(c for c in candidates if c >= cur)
+def _profiler(profile_dir: str):
+    """A ``torch.profiler`` over the first chunks, written as
+    ``<profile_dir>/trace.json`` (the ``jax.profiler`` trace of the JAX CLI)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-
-def train(cfg: RunConfig) -> dict:
-    """Run ``cfg``, printing one JSON metrics line per log event; return
-    the summary."""
-    from mdgan_tpu_torch.core.registry import get as get_spec
-    from mdgan_tpu_torch.data.partitioner import shard_data
-    from mdgan_tpu_torch.data.sampler import ShardSampler
-    from mdgan_tpu_torch.engine.mdgan import MDGANEngine
-
-    tc, n = cfg.train, cfg.mesh.num_workers
-    if tc.chunk_size < 1:
-        raise ValueError(f"chunk_size must be at least 1, got {tc.chunk_size}")
-    if n > 1 and tc.swap_interval > 0 and n % 2 != 0:
-        raise ValueError(f"num_workers={n} must be even when discriminator swaps "
-                         "are enabled (set --swap_interval 0 to disable)")
-    spec = get_spec(cfg.data.dataset)
-    engine = MDGANEngine(spec, tc, n)
-    data, _ = spec.load(cfg.data.data_dir, fallback=cfg.data.fallback,
-                        max_examples=cfg.data.max_examples)
-    # seed 0 == the reference's device_generator.manual_seed(0)
-    shards_np, _ = shard_data(data, n, iid=cfg.data.iid, seed=0)
-    shards = engine.shard_data(shards_np)
-    sampler = ShardSampler(n, shards_np.shape[1], tc.batch_size, seed=0)
-    st = engine.init_state(tc.seed)
-    swap_rng = np.random.default_rng(tc.seed)
-
-    dev = engine.device
-    if dev.type == "cuda":
-        from mdgan_tpu_torch.ops import _build
-
-        _build.lib()  # build the kernels before the clock starts
-        torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    cur, swaps, last = 0, 0, {}
-    finite = torch.ones((), dtype=torch.bool, device=dev)  # read once, at the end
-    while cur < tc.epochs:
-        e = next_event(cur, tc.epochs, tc.swap_interval, tc.log_interval, n)
-        clen = min(tc.chunk_size, e - cur + 1, tc.epochs - cur)
-        m = engine.run_rounds(st, shards, sampler, clen)
-        end, cur = cur + clen - 1, cur + clen  # end: the chunk's last round
-        for key in ("mean_d_loss", "g_feedback_loss", "feedback_norm"):
-            finite &= torch.isfinite(m[key]).all()
-        if n > 1 and tc.swap_interval > 0 and end > 0 and end % tc.swap_interval == 0:
-            engine.swap(st, engine.sample_swap_perm(swap_rng))
-            swaps += 1
-        if (tc.log_interval > 0 and end % tc.log_interval == 0) or end == tc.epochs - 1:
-            last = {"round": end,
-                    "mean_d_loss": float(m["mean_d_loss"][-1].mean()),
-                    "g_feedback_loss": float(m["g_feedback_loss"][-1].mean()),
-                    "feedback_norm": float(m["feedback_norm"][-1])}
-            last["elapsed_s"] = time.perf_counter() - t0  # after the reads synced
-            print(json.dumps(last), flush=True)
-    all_finite = bool(finite)
-    seconds = time.perf_counter() - t0
-    return {
-        "rounds": tc.epochs, "seconds": seconds,
-        "rounds_per_s": tc.epochs / seconds if seconds > 0 else math.inf,
-        "swaps": swaps, "all_finite": all_finite,
-        "final_mean_d_loss": last.get("mean_d_loss"),
-        "final_g_feedback_loss": last.get("g_feedback_loss"),
-        "final_feedback_norm": last.get("feedback_norm"),
-        "compute_dtype": tc.compute_dtype,
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"),
-    }
+    out = Path(profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities,
+                   schedule=schedule(wait=0, warmup=1, active=_PROFILED_CHUNKS, repeat=1),
+                   on_trace_ready=lambda p: p.export_chrome_trace(str(out / "trace.json")))
 
 
 def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s - %(message)s")
     args = build_parser().parse_args(argv)
-    summary = train(config_from_args(args))
+    cfg = config_from_args(args)
+    from mdgan_tpu_torch.engine.train_loop import MDGANTrainer, StandaloneTrainer
+
+    monitor = None
+    if args.host_metrics:
+        from mdgan_tpu_torch.obs.hostmon import HostMonitor
+
+        monitor = HostMonitor(args.host_metrics).start()
+    prof = _profiler(args.profile_dir) if args.profile_dir else None
+    try:
+        trainer = MDGANTrainer(cfg) if cfg.mode == "mdgan" else StandaloneTrainer(cfg)
+        try:
+            if prof is not None:
+                prof.start()
+            summary = trainer.train(on_chunk=prof.step if prof is not None else None)
+        finally:
+            trainer.close()
+            if prof is not None:
+                prof.stop()
+    finally:
+        if monitor is not None:
+            monitor.stop()
     print(json.dumps(summary), flush=True)
     return 0
 

@@ -1,7 +1,7 @@
 """Per-worker batch-index sampling.
 
-Copy of ``mdgan_tpu/data/sampler.py:1-73`` (its checkpoint helpers
-come with checkpoints, ROADMAP.md A.3): each worker draws batches without
+Copy of ``mdgan_tpu/data/sampler.py:1-90``, with its checkpoint helpers
+(``state_dict``/``load_state_dict``, ``:76-90``): each worker draws batches without
 replacement from its shard and reshuffles when the shard is exhausted (the
 reference worker's seeded DataLoader).  The sampler runs on the host and
 emits (T, N, b) int32 index arrays, the same streams as the JAX package's.
@@ -61,3 +61,20 @@ class ShardSampler:
                 pos += self.b
             st.pos[w], st.epoch[w], st.perms[w] = pos, epoch, perm
         return out
+
+    # --- checkpointing ---
+    def state_dict(self) -> dict:
+        return {
+            "perms": self.state.perms,
+            "pos": self.state.pos,
+            "epoch": self.state.epoch,
+            "seed": np.int64(self.state.seed),
+        }
+
+    def load_state_dict(self, d: dict) -> None:
+        self.state = SamplerState(
+            perms=np.asarray(d["perms"], np.int32),
+            pos=np.asarray(d["pos"], np.int64),
+            epoch=np.asarray(d["epoch"], np.int64),
+            seed=int(d["seed"]),
+        )

@@ -43,65 +43,43 @@ from mdgan_tpu_torch.ops import losses
 from mdgan_tpu_torch.ops.sampling import sample_normalize
 
 
-class MDGANEngine:
-    """Holds the models' factories, the device and the round."""
+class EngineBase:
+    """What both engines share: the device, the compute dtype, the latent
+    lane, index upload and generator sampling."""
 
-    def __init__(self, spec: DatasetSpec, train_cfg: TrainConfig, num_workers: int,
+    def __init__(self, spec: DatasetSpec, train_cfg: TrainConfig,
                  model_kwargs: Optional[Dict] = None):
         """``train_cfg.device`` picks the device (None: cuda, raising when
         there is none); ``model_kwargs`` passes widths (``ngf``, ``ndf``)
         to the model factories."""
-        if num_workers < 1:
-            raise ValueError("need at least one discriminator worker")
-        if train_cfg.straggler_rate != 0.0:
-            raise NotImplementedError(
-                "straggler_rate > 0 is not ported yet (ROADMAP.md A.6, the "
-                "straggler mask and the 1/(b*|S|) mean)")
         for opt in (train_cfg.generator_opt, train_cfg.discriminator_opt):
             if (opt.mu_dtype, opt.nu_dtype) != ("float32", "float32"):
                 raise NotImplementedError(
                     "bfloat16 Adam moments are not ported yet (ROADMAP.md A.6)")
         if train_cfg.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {train_cfg.compute_dtype!r}")
-        if train_cfg.swap_impl == "ppermute":
-            raise NotImplementedError(
-                "swap_impl='ppermute' needs the multi-GPU port (ROADMAP.md A.8)")
         self.spec = spec
         self.cfg = train_cfg
-        self.n = num_workers
-        self.k = k_batches(num_workers)
         self.device = resolve_device(train_cfg.device)
         self.model_kwargs = dict(model_kwargs or {})
         self._bf16 = train_cfg.compute_dtype == "bfloat16"
-        w = torch.arange(num_workers, device=self.device)
-        self._g_assign = w % self.k          # X_g batch per worker (server.py:238)
-        self._d_assign = (w + 1) % self.k    # X_d batch per worker (server.py:239)
         self._zgen = torch.Generator(device=self.device)
-
-    # ------------------------------------------------------------------
-    # initialization
-    # ------------------------------------------------------------------
-
-    def init_state(self, seed: int) -> MDGANState:
-        """G from lane INIT_G, discriminator w from lane (INIT_D, w); drawn on
-        the CPU so every device starts from the same weights."""
-        g = dcgan_init_(self.spec.make_generator(**self._kw("ngf")),
-                        prng.generator(seed, prng.INIT_G))
-        ds = [dcgan_init_(self.spec.make_discriminator(**self._kw("ndf")),
-                          prng.generator(seed, prng.INIT_D, w))
-              for w in range(self.n)]
-        return MDGANState(g=NetState([g], self.device),
-                          d=NetState(ds, self.device), seed=seed)
 
     def _kw(self, width: str) -> Dict:
         return {width: self.model_kwargs[width]} if width in self.model_kwargs else {}
 
-    def shard_data(self, shards: np.ndarray) -> torch.Tensor:
-        """The (N, S, H, W, C) uint8 shard stack, resident on the device."""
-        if shards.dtype != np.uint8 or shards.ndim != 5 or shards.shape[0] != self.n:
-            raise ValueError(f"shards must be (N={self.n}, S, H, W, C) uint8, "
-                             f"got {shards.shape} {shards.dtype}")
-        return torch.from_numpy(np.ascontiguousarray(shards)).to(self.device)
+    def new_generator(self, seed: int) -> NetState:
+        """A generator on the device, initialized from lane INIT_G (drawn on
+        the CPU, so every device starts from the same weights)."""
+        g = dcgan_init_(self.spec.make_generator(**self._kw("ngf")),
+                        prng.generator(seed, prng.INIT_G))
+        return NetState([g], self.device)
+
+    def _new_discriminators(self, seed: int, n: int) -> NetState:
+        """n discriminators, copy w from lane (INIT_D, w)."""
+        return NetState([dcgan_init_(self.spec.make_discriminator(**self._kw("ndf")),
+                                     prng.generator(seed, prng.INIT_D, w))
+                         for w in range(n)], self.device)
 
     def put_indices(self, idx: np.ndarray, shard_size: int) -> torch.Tensor:
         """Validate sampler indices on the host, then copy them to the device."""
@@ -110,20 +88,77 @@ class MDGANEngine:
             raise IndexError(f"sample index outside [0, {shard_size})")
         return torch.from_numpy(np.ascontiguousarray(idx, np.int32)).to(self.device)
 
-    # ------------------------------------------------------------------
-    # one training round
-    # ------------------------------------------------------------------
-
     def _autocast(self):
         if not self._bf16:
             return contextlib.nullcontext()
         return torch.autocast(device_type=self.device.type, dtype=torch.bfloat16)
 
+    def _latents(self, step: int, seed: int, num: int) -> torch.Tensor:
+        """``num`` latents from lane (LATENT, step)."""
+        prng.reseed(self._zgen, seed, prng.LATENT, step)
+        return torch.randn(num, self.spec.z_dim, generator=self._zgen, device=self.device)
+
+    @torch.no_grad()
+    def generate(self, g: NetState, z: torch.Tensor) -> torch.Tensor:
+        """G(z) with train-mode BN, as ``sample_fn`` (``mdgan.py:596-608``);
+        G's running stats are left as they were."""
+        saved = g.stats.clone()
+        with self._autocast():
+            out = g.modules[0](z)
+        g.stats.copy_(saved)
+        return out
+
+    def sample(self, g: NetState, num: int, seed: int) -> torch.Tensor:
+        """``num`` images from lane (EVAL, seed)."""
+        gen = prng.generator(seed, prng.EVAL, 0, device=self.device)
+        return self.generate(g, torch.randn(num, self.spec.z_dim, generator=gen,
+                                            device=self.device))
+
+
+class MDGANEngine(EngineBase):
+    """Holds the models' factories, the device and the round."""
+
+    def __init__(self, spec: DatasetSpec, train_cfg: TrainConfig, num_workers: int,
+                 model_kwargs: Optional[Dict] = None):
+        if num_workers < 1:
+            raise ValueError("need at least one discriminator worker")
+        if train_cfg.straggler_rate != 0.0:
+            raise NotImplementedError(
+                "straggler_rate > 0 is not ported yet (ROADMAP.md A.6, the "
+                "straggler mask and the 1/(b*|S|) mean)")
+        if train_cfg.swap_impl == "ppermute":
+            raise NotImplementedError(
+                "swap_impl='ppermute' needs the multi-GPU port (ROADMAP.md A.8)")
+        super().__init__(spec, train_cfg, model_kwargs)
+        self.n = num_workers
+        self.k = k_batches(num_workers)
+        w = torch.arange(num_workers, device=self.device)
+        self._g_assign = w % self.k          # X_g batch per worker (server.py:238)
+        self._d_assign = (w + 1) % self.k    # X_d batch per worker (server.py:239)
+
+    # ------------------------------------------------------------------
+    # initialization
+    # ------------------------------------------------------------------
+
+    def init_state(self, seed: int) -> MDGANState:
+        """G from lane INIT_G, discriminator w from lane (INIT_D, w)."""
+        return MDGANState(g=self.new_generator(seed),
+                          d=self._new_discriminators(seed, self.n), seed=seed)
+
+    def shard_data(self, shards: np.ndarray) -> torch.Tensor:
+        """The (N, S, H, W, C) uint8 shard stack, resident on the device."""
+        if shards.dtype != np.uint8 or shards.ndim != 5 or shards.shape[0] != self.n:
+            raise ValueError(f"shards must be (N={self.n}, S, H, W, C) uint8, "
+                             f"got {shards.shape} {shards.dtype}")
+        return torch.from_numpy(np.ascontiguousarray(shards)).to(self.device)
+
+    # ------------------------------------------------------------------
+    # one training round
+    # ------------------------------------------------------------------
+
     def latents(self, st: MDGANState) -> torch.Tensor:
         """This round's k*b latents from lane (LATENT, step)."""
-        prng.reseed(self._zgen, st.seed, prng.LATENT, st.step)
-        return torch.randn(self.k * self.cfg.batch_size, self.spec.z_dim,
-                           generator=self._zgen, device=self.device)
+        return self._latents(st.step, st.seed, self.k * self.cfg.batch_size)
 
     def step(self, st: MDGANState, data: torch.Tensor, idx: torch.Tensor,
              z: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
@@ -229,20 +264,3 @@ class MDGANEngine:
         perm_t = torch.as_tensor(perm, device=self.device)
         st.d.permute_(perm_t, with_opt_state=self.cfg.swap_opt_state)
         return st
-
-    # ------------------------------------------------------------------
-    # sampling (the reference's gen_images path)
-    # ------------------------------------------------------------------
-
-    @torch.no_grad()
-    def sample(self, g: NetState, num: int, seed: int) -> torch.Tensor:
-        """``num`` images from lane (EVAL, seed) with train-mode BN, as
-        ``sample_fn`` (``mdgan.py:596-608``); G's running stats are left as
-        they were."""
-        gen = prng.generator(seed, prng.EVAL, 0, device=self.device)
-        z = torch.randn(num, self.spec.z_dim, generator=gen, device=self.device)
-        saved = g.stats.clone()
-        with self._autocast():
-            out = g.modules[0](z)
-        g.stats.copy_(saved)
-        return out

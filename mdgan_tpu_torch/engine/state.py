@@ -87,13 +87,29 @@ class NetState:
     # --- per-copy views (tests, weight import/export) ---
     def views(self, arena: torch.Tensor, w: int) -> Dict[str, torch.Tensor]:
         """Named per-parameter views of copy ``w`` of a params-shaped arena
-        (``params``, ``grads``, ``mu`` or ``nu``)."""
-        out, off = {}, w * self.numel
-        for name, shape in zip(self.param_names, self.param_shapes):
+        (``params``, ``grads``, ``mu`` or ``nu``, or a clone of one)."""
+        return self._named(arena, w * self.numel, self.param_names, self.param_shapes)
+
+    def stat_views(self, arena: torch.Tensor, w: int) -> Dict[str, torch.Tensor]:
+        """Named views of copy ``w`` of a stats-shaped arena (``stats`` or a
+        clone of it)."""
+        return self._named(arena, w * self.stat_numel, self.stat_names, self.stat_shapes)
+
+    @staticmethod
+    def _named(arena, off, names, shapes) -> Dict[str, torch.Tensor]:
+        out = {}
+        for name, shape in zip(names, shapes):
             size = int(np.prod(shape))
             out[name] = arena[off:off + size].view(shape)
             off += size
         return out
+
+    def snapshot(self) -> Dict:
+        """Device-side clones of the arenas a checkpoint stores, and the Adam
+        ``count``.  The arenas are updated in place every round, so a
+        background thread must read a clone, never the live tensors."""
+        return {"params": self.params.clone(), "stats": self.stats.clone(),
+                "mu": self.mu.clone(), "nu": self.nu.clone(), "count": self.count}
 
     def zero_grad(self) -> None:
         self.grads.zero_()
@@ -121,6 +137,17 @@ class NetState:
 @dataclasses.dataclass
 class MDGANState:
     """Generator (n=1), N discriminators, the run's seed and round counter."""
+
+    g: NetState
+    d: NetState
+    seed: int
+    step: int = 0
+
+
+@dataclasses.dataclass
+class StandaloneState:
+    """Generator and one discriminator (both n=1), the run's seed and round
+    counter (``mdgan_tpu/engine/state.py`` ``StandaloneState``)."""
 
     g: NetState
     d: NetState

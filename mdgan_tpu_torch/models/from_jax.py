@@ -15,6 +15,9 @@ Trees are nested dicts of numpy arrays, or the flat ``params/...`` and
 ``batch_stats/...`` keys of a weights npz (``utils/checkpoint.py:117-137``).
 A stacked tree (every leaf with a leading N axis, as the JAX engine keeps its
 discriminators) is read one worker at a time with :func:`index_tree`.
+
+:func:`inception_to_port` carries the JAX InceptionV3's variables into the
+port's ``metrics/inception.py`` (the parity tests use it).
 """
 
 from __future__ import annotations
@@ -205,16 +208,69 @@ def load_net(net, params: Mapping, stats: Mapping, mu: Mapping = None,
     return net
 
 
+def _stack(trees):
+    if isinstance(trees[0], Mapping):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def export_arenas(net, arenas: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+    """Flat arenas in ``net``'s layout (the live ``params``/``stats``/
+    ``mu``/``nu`` or clones of them, on any device) -> flax trees under the
+    same keys (``stats``: BatchNorm statistics; the others: params-shaped),
+    stacked on a leading N axis when ``net.n > 1``."""
+    role = role_of(net.modules[0])
+    out = {}
+    for key, arena in arenas.items():
+        host = arena.detach().to("cpu", copy=True)  # the trees must not alias the arena
+        views, to_jax = ((net.stat_views, stats_to_jax) if key == "stats"
+                         else (net.views, params_to_jax))
+        trees = [to_jax({k: v.numpy() for k, v in views(host, w).items()}, role)
+                 for w in range(net.n)]
+        out[key] = trees[0] if net.n == 1 else _stack(trees)
+    return out
+
+
 def export_net(net) -> Tuple[Dict, Dict]:
     """An arena-backed ``NetState`` -> flax (params, stats), stacked on a
     leading N axis when ``net.n > 1``."""
-    trees = [export(m) for m in net.modules]
-    if net.n == 1:
-        return trees[0]
+    trees = export_arenas(net, {"params": net.params, "stats": net.stats})
+    return trees["params"], trees["stats"]
 
-    def stack(*leaves):
-        if isinstance(leaves[0], Mapping):
-            return {k: stack(*(leaf[k] for leaf in leaves)) for k in leaves[0]}
-        return np.stack(leaves)
 
-    return stack(*(t[0] for t in trees)), stack(*(t[1] for t in trees))
+# --- InceptionV3 (metrics/inception.py) ------------------------------------
+
+def inception_to_port(variables: Mapping) -> Dict[str, np.ndarray]:
+    """JAX ``InceptionV3`` variables (``{"params", "batch_stats"}``, numpy;
+    the whole network or any block of it) -> the port's state dict, which
+    uses torchvision's names.  The inverse of
+    ``mdgan_tpu/metrics/inception.py:load_torch_npz`` (``:243-293``): conv
+    kernels HWIO -> OIHW, Dense (in, out) -> (out, in), BatchNorm
+    ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
+    ``running_mean``/``running_var``."""
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(tree, prefix, stats):
+        for name, node in tree.items():
+            key = f"{prefix}{name}"
+            if isinstance(node, Mapping):
+                walk(node, key + ".", stats)
+                continue
+            a = np.array(node, np.float32)
+            mod, _, leaf = key.rpartition(".")
+            if stats:
+                out[f"{mod}.running_{leaf}"] = a
+            elif leaf == "kernel" and a.ndim == 4:
+                out[f"{mod}.weight"] = np.ascontiguousarray(a.transpose(3, 2, 0, 1))
+            elif leaf == "kernel":
+                out[f"{mod}.weight"] = np.ascontiguousarray(a.T)
+            elif leaf == "scale":
+                out[f"{mod}.weight"] = a
+            elif leaf == "bias":
+                out[key] = a
+            else:
+                raise KeyError(f"unmapped inception leaf {key!r}")
+
+    walk(variables["params"], "", stats=False)
+    walk(variables.get("batch_stats", {}), "", stats=True)
+    return out

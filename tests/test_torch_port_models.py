@@ -24,6 +24,18 @@ GOLDEN = Path(__file__).resolve().parents[1] / "artifacts/golden/cifar10_w8_r200
 RTOL, ATOL = 1e-4, 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's small tensors: extra threads
+    buy nothing at these sizes and spin against the other test processes
+    the suite runs beside this one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+
 def _flax_train(model, params, stats, x):
     out, mutated = model.apply({"params": params, "batch_stats": stats}, jnp.asarray(x),
                                train=True, mutable=["batch_stats"])

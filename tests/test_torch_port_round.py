@@ -38,14 +38,27 @@ LR, B, WIDTH = 2e-4, 4, 8
 NARROW = "TorchPortNarrow32"
 
 
-def _narrow_jax_spec():
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's small tensors: extra threads
+    buy nothing at these sizes and spin against the other test processes
+    the suite runs beside this one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+
+def _narrow_jax_spec(width=WIDTH):
+    name = NARROW if width == WIDTH else f"{NARROW}w{width}"
     try:
-        return jregistry.get(NARROW)
+        return jregistry.get(name)
     except KeyError:
         return jregistry.register(jregistry.DatasetSpec(
-            name=NARROW, shape=jdcgan32.SHAPE, z_dim=jdcgan32.Z_DIM,
-            make_generator=functools.partial(jdcgan32.DCGANGenerator32, ngf=WIDTH),
-            make_discriminator=functools.partial(jdcgan32.DCGANDiscriminator32, ndf=WIDTH),
+            name=name, shape=jdcgan32.SHAPE, z_dim=jdcgan32.Z_DIM,
+            make_generator=functools.partial(jdcgan32.DCGANGenerator32, ngf=width),
+            make_discriminator=functools.partial(jdcgan32.DCGANDiscriminator32, ndf=width),
             load=lambda *a, **k: jbuiltin.synthesize((32, 32, 3), 400, seed=32),
         ))
 
@@ -53,21 +66,25 @@ def _narrow_jax_spec():
 class Pair:
     """A JAX engine and the port's, on the same data and indices."""
 
-    def __init__(self, n):
+    def __init__(self, n, local_epochs=1, swap_opt_state=False, dtype="float32", seed=3,
+                 width=WIDTH):
         self.n = n
-        self.jeng = JaxEngine(_narrow_jax_spec(), JaxTrainConfig(
-            batch_size=B, chunk_size=1, compute_dtype="float32", donate=False), n)
+        self.local_epochs = local_epochs
+        self.jeng = JaxEngine(_narrow_jax_spec(width), JaxTrainConfig(
+            batch_size=B, chunk_size=1, compute_dtype=dtype, donate=False,
+            local_epochs=local_epochs, swap_opt_state=swap_opt_state), n)
         self.peng = MDGANEngine(get_spec("Synthetic32"), TrainConfig(
-            batch_size=B, compute_dtype="float32", device="cpu"), n,
-            model_kwargs={"ngf": WIDTH, "ndf": WIDTH})
+            batch_size=B, compute_dtype=dtype, device="cpu", local_epochs=local_epochs,
+            swap_opt_state=swap_opt_state), n,
+            model_kwargs={"ngf": width, "ndf": width})
         data, _ = builtin.synthesize((32, 32, 3), 40 * n, seed=32)
         shards, _ = partitioner.shard_data(data, n, iid=True, seed=0)
         self.shard_size = shards.shape[1]
         self.jdata = self.jeng.shard_data(shards)
         self.pdata = self.peng.shard_data(shards)
         self.sampler = sampler.ShardSampler(n, shards.shape[1], B, seed=0)
-        self.jst = self.jeng.init_state(seed=3)
-        self.pst = self.peng.init_state(seed=3)
+        self.jst = self.jeng.init_state(seed=seed)
+        self.pst = self.peng.init_state(seed=seed)
         self.carry_jax_state()
 
     def carry_jax_state(self):
@@ -120,7 +137,8 @@ def check_deltas(pair, before):
         d_port = _flat(pnew[name][0]) - _flat(pold[name][0])
         close = np.isclose(d_port, d_jax, rtol=1e-2, atol=1e-6)
         assert 1.0 - close.mean() < 0.005, (name, 1.0 - close.mean())
-        assert np.abs(d_port - d_jax).max() <= 2.05 * LR + 1e-6, name
+        steps = pair.local_epochs if name == "d" else 1
+        assert np.abs(d_port - d_jax).max() <= 2.05 * LR * steps + 1e-6, name
         net = getattr(pair.pst, name)
         mu_port = np.concatenate([_flat(from_jax.params_to_jax(
             net.views(net.mu, w), from_jax.role_of(net.modules[0]))) for w in range(net.n)])
@@ -133,11 +151,28 @@ def check_deltas(pair, before):
                                    rtol=2e-5, atol=1e-6, err_msg=f"{name} BN stats")
 
 
-@pytest.fixture(scope="module", params=[2, 8], ids=["N2", "N8"])
-def pair(request):
-    return Pair(request.param)
+# (N, local_epochs, swap_opt_state) per case; local_epochs changes the round,
+# swap_opt_state only the swap, so each test takes the cases that reach it
+PAIRS = {"N2": (2, 1, False), "N8": (8, 1, False), "N2-local_epochs2": (2, 2, False),
+         "N8-swap_opt_state": (8, 1, True)}
+ROUND_CASES = ["N2", "N8", "N2-local_epochs2"]
+SWAP_CASES = ["N2", "N8", "N8-swap_opt_state"]
 
 
+@pytest.fixture(scope="module")
+def pairs():
+    """The module's Pairs, each built on first use."""
+    return {}
+
+
+@pytest.fixture
+def pair(request, pairs):
+    if request.param not in pairs:
+        pairs[request.param] = Pair(*PAIRS[request.param])
+    return pairs[request.param]
+
+
+@pytest.mark.parametrize("pair", ROUND_CASES, indirect=True)
 def test_one_round_matches_chunk_fn(pair):
     pair.carry_jax_state()
     jm, pm, before = pair.round()
@@ -145,6 +180,7 @@ def test_one_round_matches_chunk_fn(pair):
     check_deltas(pair, before)
 
 
+@pytest.mark.parametrize("pair", ROUND_CASES, indirect=True)
 def test_three_rounds_teacher_forced(pair):
     for _ in range(3):
         pair.carry_jax_state()
@@ -153,11 +189,33 @@ def test_three_rounds_teacher_forced(pair):
         check_deltas(pair, before)
 
 
+# Free-running rounds amplify float noise.  With local_epochs=1 the port
+# stays within 2e-6 of JAX over 3 rounds; with two D steps a round, an Adam
+# step whose gradient sits at float noise can flip, and the losses then
+# drift by up to 2.1e-3 over 3 rounds (N=2 and N=8, from a fresh state and
+# after 4 rounds; tests/test_torch_port_spread.py) while every teacher-forced
+# round still agrees to 1e-6.
+FREE_RUNNING_RTOL = {1: 1e-3, 2: 5e-3}
+
+
+@pytest.mark.parametrize("pair", ROUND_CASES, indirect=True)
 def test_three_rounds_free_running(pair):
     pair.carry_jax_state()
     for _ in range(3):
         jm, pm, _ = pair.round()
-        check_metrics(jm, pm, rtol_loss=1e-3)
+        check_metrics(jm, pm, rtol_loss=FREE_RUNNING_RTOL[pair.local_epochs])
+
+
+# bfloat16: the port autocasts and normalizes BN in float32, flax casts per
+# layer and normalizes in bfloat16 (ROADMAP.md C).  Measured spread, one
+# teacher-forced round, N in {2, 8}, widths 8 and 16, seeds 1-4 (CPU,
+# tests/test_torch_port_spread.py): losses up to 4.6e-3 relative, feedback norm
+# up to 7.8e-3 (the CPU's bfloat16 convolutions move a little between
+# runs).  The bounds are 2.5-3x that.
+def test_one_round_bfloat16_teacher_forced():
+    pair = Pair(2, dtype="bfloat16", seed=1)
+    jm, pm, _ = pair.round()
+    check_metrics(jm, pm, rtol_loss=1.5e-2, rtol_fb=2e-2)
 
 
 class _Fixed:
@@ -171,6 +229,7 @@ class _Fixed:
         return self.idx
 
 
+@pytest.mark.parametrize("pair", ROUND_CASES, indirect=True)
 def test_run_rounds_matches_chunk_fn(pair):
     """One port chunk of 3 rounds (one gather) against JAX's fused
     ``chunk_fn(3)``, with JAX's latents injected."""
@@ -225,9 +284,17 @@ def test_run_rounds_equals_step_calls_bit_equal(n, latents):
         eng.run_rounds(st_chunk, data, _Fixed(idx), t, z=torch.zeros(t - 1, eng.k * B, 100))
 
 
+@pytest.mark.parametrize("pair", SWAP_CASES, indirect=True)
 def test_swap_matches_swap_fn(pair):
     if pair.n % 2:
         pytest.skip("swaps need an even worker count")
+    # Adam moments that differ between workers, so a swap of them shows
+    rng = np.random.default_rng(4)
+    adam = pair.jst.d.opt[0]
+    noisy = adam._replace(**{k: jax.tree.map(
+        lambda a: jnp.asarray(np.abs(rng.normal(size=a.shape)), a.dtype), getattr(adam, k))
+        for k in ("mu", "nu")})
+    pair.jst = pair.jst.replace(d=pair.jst.d.replace(opt=(noisy,) + tuple(pair.jst.d.opt[1:])))
     pair.carry_jax_state()
     perm = pair.jeng.sample_swap_perm(np.random.default_rng(5))
     np.testing.assert_array_equal(pair.peng.sample_swap_perm(np.random.default_rng(5)), perm)
@@ -239,13 +306,22 @@ def test_swap_matches_swap_fn(pair):
             np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="permutation"):
         pair.peng.swap(pair.pst, np.zeros(pair.n, np.int32))
-    # Adam moments stay with their worker (swap_opt_state=False)
-    mu = from_jax.params_to_jax(pair.pst.d.views(pair.pst.d.mu, 0), "discriminator")
-    want_mu = from_jax.index_tree(jax.device_get(pair.jst.d.opt[0].mu), 0)
-    for a, b in zip(jax.tree.leaves(mu), jax.tree.leaves(want_mu)):
-        np.testing.assert_array_equal(a, b)
+    # Adam moments move with their discriminator only under swap_opt_state
+    for w in range(pair.n):
+        for arena, moment in (("mu", jst.d.opt[0].mu), ("nu", jst.d.opt[0].nu)):
+            got = from_jax.params_to_jax(pair.pst.d.views(getattr(pair.pst.d, arena), w),
+                                         "discriminator")
+            want = from_jax.index_tree(jax.device_get(moment), w)
+            for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+                np.testing.assert_array_equal(a, b)
+    moved = not np.array_equal(perm, np.arange(pair.n))
+    stayed = all(np.array_equal(a, b) for a, b in zip(
+        jax.tree.leaves(jax.device_get(jst.d.opt[0].mu)),
+        jax.tree.leaves(jax.device_get(pair.jst.d.opt[0].mu))))
+    assert stayed == (not (pair.peng.cfg.swap_opt_state and moved))
 
 
+@pytest.mark.parametrize("pair", ["N2", "N8"], indirect=True)
 def test_sample_matches_flax_and_keeps_stats(pair):
     from mdgan_tpu.engine import state as jstate
     from mdgan_tpu_torch.core import prng
@@ -314,10 +390,36 @@ def test_swap_perm_identical():
                                       JaxEngine.sample_swap_perm(peng, rj))
 
 
-def test_cli_two_rounds_full_width_on_cpu(capsys):
+@pytest.fixture()
+def stub_inception(monkeypatch):
+    """FID/IS stubbed, as ``tests/test_train_loop.py`` stubs them: the
+    metrics have their own tests (``tests/test_torch_port_metrics.py``)."""
+    from mdgan_tpu_torch.metrics import fid as fid_mod
+
+    class FakeTracker:
+        def __init__(self, real, device=None):
+            pass
+
+        def score(self, fakes):
+            return 123.0
+
+        def inception_score(self, fakes, splits=1):
+            return (2.0, 0.0)
+
+    monkeypatch.setattr(fid_mod, "FIDTracker", FakeTracker)
+
+
+def _dirs(root):
+    """The CLI's output directories, under ``root``."""
+    return [arg for flag in ("log_dir", "image_dir", "weights_dir", "checkpoint_dir")
+            for arg in (f"--{flag}", str(root / flag))]
+
+
+def test_cli_two_rounds_full_width_on_cpu(capsys, tmp_path, stub_inception):
     rc = cli.main(["--mode", "mdgan", "--dataset", "CIFAR10", "--num_workers", "8",
                    "--batch_size", "10", "--epochs", "2", "--swap_interval", "1",
-                   "--log_interval", "1", "--max_examples", "800", "--device", "cpu"])
+                   "--log_interval", "1", "--max_examples", "800", "--device", "cpu"]
+                  + _dirs(tmp_path))
     assert rc == 0
     lines = capsys.readouterr().out.strip().splitlines()
     summary = __import__("json").loads(lines[-1])
@@ -325,21 +427,22 @@ def test_cli_two_rounds_full_width_on_cpu(capsys):
     assert summary["device"] == "cpu" and len(lines) == 3
 
 
-def _cli_lines(capsys, chunk_size):
+def _cli_lines(capsys, chunk_size, root):
     """The CLI's printed lines without their clock readings."""
     rc = cli.main(["--mode", "mdgan", "--dataset", "CIFAR10", "--num_workers", "2",
                    "--batch_size", "4", "--epochs", "5", "--swap_interval", "3",
                    "--log_interval", "4", "--max_examples", "200", "--device", "cpu",
-                   "--compute_dtype", "float32", "--chunk_size", str(chunk_size)])
+                   "--compute_dtype", "float32", "--chunk_size", str(chunk_size)]
+                  + _dirs(root / str(chunk_size)))
     assert rc == 0
     lines = [__import__("json").loads(ln) for ln in capsys.readouterr().out.strip().splitlines()]
     for line in lines:
-        for key in ("elapsed_s", "seconds", "rounds_per_s"):
+        for key in ("elapsed_s", "wall_time_s", "steps_per_sec"):
             line.pop(key, None)
     return lines
 
 
-def test_cli_chunk_size_changes_no_metric(capsys, monkeypatch):
+def test_cli_chunk_size_changes_no_metric(capsys, monkeypatch, tmp_path, stub_inception):
     """Chunks of 2 rounds ([0], [1, 2], [3], [4]: clipped at the log event
     of round 0, the swap after round 3 and the last round) print what one
     chunk per event run ([0], [1, 2, 3], [4]) prints."""
@@ -351,22 +454,22 @@ def test_cli_chunk_size_changes_no_metric(capsys, monkeypatch):
         return run_rounds(self, st, data, sampler_, num_rounds, z)
 
     monkeypatch.setattr(MDGANEngine, "run_rounds", recording)
-    small = _cli_lines(capsys, 2)
+    small = _cli_lines(capsys, 2, tmp_path)
     assert chunks == [1, 2, 1, 1]
     chunks.clear()
-    large = _cli_lines(capsys, 100)
+    large = _cli_lines(capsys, 100, tmp_path)
     assert chunks == [1, 3, 1]
     assert [ln.get("round") for ln in small[:-1]] == [0, 4]
     assert small[-1]["swaps"] == 1 and small[-1]["all_finite"]
     assert small == large
     with pytest.raises(ValueError, match="chunk_size"):
-        _cli_lines(capsys, 0)
+        _cli_lines(capsys, 0, tmp_path)
 
 
-@pytest.mark.parametrize("flag", [["--mode", "standalone"], ["--straggler_rate", "0.1"],
+@pytest.mark.parametrize("flag", [["--swap_impl", "ppermute"], ["--straggler_rate", "0.1"],
                                   ["--moment_dtype", "bfloat16"], ["--num_replicas", "2"],
-                                  ["--dataset", "MNIST"], ["--resume"]])
-def test_cli_waiting_features_raise(flag):
+                                  ["--dataset", "MNIST"], ["--download"]])
+def test_cli_waiting_features_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--epochs", "1", "--device", "cpu", "--num_workers", "2",
-                  "--max_examples", "40"] + flag)
+                  "--max_examples", "40"] + flag + _dirs(tmp_path))

@@ -10,11 +10,14 @@ Phases, each printing one JSON line with its seconds:
   kernels  each CUDA kernel at the main paths' shapes against its plain
            PyTorch version on the card (Adam: the G arena, the 8-D arena of
            the MD-GAN round and the 1-D arena of the standalone round, 3
-           steps, rtol 1e-6; sampling: bit-equal on the full CIFAR-10 shard
+           steps, rtol 1e-6, for DCGAN-32 and each other family at full
+           width; sampling: bit-equal on the full CIFAR-10 shard
            stack at the MD-GAN chunk T=100 and at T=1, on the standalone
            run's one-shard stack of 50,000 rows at T=100 and T=1, and on
            64x64x3, 128x128x3, 5x5x3, 2x2x3 and 3x3x16 rows, an unaligned
-           shard stack and out-of-range indices, which must give NaN rows),
+           shard stack and out-of-range indices, which must give NaN rows,
+           and at each family's launch: 28x28x1, 64x64x3 and 128x128x3 rows
+           at N=8 and N=1),
            with kernel, plain and library device times (CUDA events, the
            host's issue hidden behind a device sleep, see
            ``mdgan_tpu_torch.core.timing.time_ms``; a reading the host's
@@ -23,7 +26,10 @@ Phases, each printing one JSON line with its seconds:
   golden   the committed JAX-trained generator through ``from_jax``: a
            train-mode forward on the card equals the CPU's (float32, TF32 off)
   round    two narrow MD-GAN rounds (N=2, width 8) on the card against the
-           same rounds on the CPU (plain versions), float32, TF32 off
+           same rounds on the CPU (plain versions), float32, TF32 off; the
+           same for each other family, narrow (MLP at its only width with
+           dropout masks injected, DCGAN-64 at width 8, StyleGAN2 at
+           max_res 32, 32 base features, 2 mapping layers)
   mdgan    the CLI's ``main`` at the headline config (CIFAR10, N=8, b=10,
            full width), its files in a temporary directory: 20 rounds with
            --swap_interval 10 in float32 with the default --chunk_size, then
@@ -41,7 +47,17 @@ Phases, each printing one JSON line with its seconds:
            Inception forward, eval and checkpoint save times
   profile  the MD-GAN round's (float32, bfloat16) and the standalone
            round's host time over 20 warm rounds, and device time by kernel
-           from a torch.profiler window
+           from a torch.profiler window; the same for each other model
+           family at full width (fewer rounds)
+  families the three other model families at full width through the CLI's
+           ``main`` (MNIST: MLP-GAN; CelebA: DCGAN-64, ngf=ndf=64; FFHQ128:
+           StyleGAN2, 512 base features, 8 mapping layers, 128x128): MD-GAN
+           at N=8, b=10, --swap_interval 5, 10 rounds in float32 and in
+           bfloat16, and 10 standalone rounds, each on 8,000 examples;
+           losses and FID/IS finite, 2 Adam launches a round (a local epoch
+           in standalone) and the sampling launches of the chunks, counted
+           from the run against a count computed here; then a chunk's
+           gather split at the 256 MiB cap held to the plain gather
 
 Then one JSON line with every kernel's record, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -66,6 +82,12 @@ from pathlib import Path
 ADAM_BYTES_PER_ELEM = 28    # read p, g, mu, nu; write p, mu, nu (float32)
 ADAM_OPS_PER_ELEM = 13      # see csrc/adam.cu
 L2_BYTES = 50 * 2 ** 20     # H100 SXM L2 cache
+# the most float32 bytes one sampling launch of a chunk writes: the engines'
+# GATHER_CAP_BYTES, restated here so the expected launch counts do not come
+# from the code under test
+SAMPLING_CAP_BYTES = 256 * 2 ** 20
+# the other model families' datasets and their stored image shapes (H, W, C)
+FAMILIES = {"MNIST": (28, 28, 1), "CelebA": (64, 64, 3), "FFHQ128": (128, 128, 3)}
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "artifacts/golden/cifar10_w8_r2000/weights/generator_final.npz"
 
@@ -91,82 +113,108 @@ def nvidia_smi() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def phase_kernels():
-    """Both kernels at the main path's shapes against their plain versions."""
+def adam_arena(gen, n, rec, name):
+    """Adam on an arena of ``n`` elements: 3 steps of the kernel against the
+    plain version (rtol 1e-6; the worst errors go into ``rec``), then
+    kernel, plain and fused-torch device times, the inputs rotated out of
+    the L2."""
     import torch
 
     from mdgan_tpu_torch.core.timing import bound_ms, time_ms
-    from mdgan_tpu_torch.models.dcgan32 import DCGANDiscriminator32, DCGANGenerator32
     from mdgan_tpu_torch.ops import adam
+
+    dev = torch.device("cuda")
+    lr, b1, b2, eps = 2e-4, 0.0, 0.999, 1e-8
+
+    def rand(scale, positive=False):
+        t = torch.randn(n, generator=gen, device=dev) * scale
+        return t.abs() if positive else t
+    start = [rand(0.02), rand(1e-2), rand(1e-3), rand(1e-5, positive=True)]
+    ker = [t.clone() for t in start]
+    ref = [t.clone() for t in start]
+    for count in (1, 2, 3):
+        lr_c1, inv_c2 = adam.bias_scalars(lr, b1, b2, count)
+        adam.adam_update(ker[0], ker[1], ker[2], ker[3], lr_c1, inv_c2, b1, b2, eps)
+        adam.adam_plain(ref[0], ref[1], ref[2], ref[3], lr_c1, inv_c2, b1, b2, eps)
+    torch.cuda.synchronize()
+    for i in (0, 2, 3):  # p, mu, nu
+        err = (ker[i] - ref[i]).abs()
+        rel = float((err / (1e-30 + ref[i].abs())).max())
+        require(bool((err <= 1e-9 + 1e-6 * ref[i].abs()).all()),
+                f"adam kernel vs plain on {name}: max rel err {rel}")
+        rec["max_abs_err"] = max(rec["max_abs_err"], float(err.max()))
+        rec["max_rel_err"] = max(rec["max_rel_err"], rel)
+
+    lr_c1, inv_c2 = adam.bias_scalars(lr, b1, b2, 4)
+    # consecutive timed calls rotate over enough copies of the arenas
+    # that each finds its inputs outside the L2, as a launch inside a
+    # round does (the 1-D arena alone would stay L2-resident)
+    copies = max(1, math.ceil(2 * L2_BYTES / (16 * n)))
+    sets = [ker] + [[t.clone() for t in ker] for _ in range(copies - 1)]
+    refs = [ref] + [[t.clone() for t in ref] for _ in range(copies - 1)]
+    opts = []
+    for _ in range(copies):
+        param = torch.nn.Parameter(start[0].clone())
+        param.grad = start[1].clone()
+        opts.append(torch.optim.Adam([param], lr=lr, betas=(b1, b2), eps=eps, fused=True))
+    it = itertools.count()
+    k_t = time_ms(lambda: adam.adam_update(*sets[next(it) % copies], lr_c1, inv_c2,
+                                           b1, b2, eps), 50)
+    p_t = time_ms(lambda: adam.adam_plain(*refs[next(it) % copies], lr_c1, inv_c2,
+                                          b1, b2, eps), 20)
+    l_t = time_ms(lambda: opts[next(it) % copies].step(), 50)
+    b_ms, b_by = bound_ms(ADAM_BYTES_PER_ELEM * n, ADAM_OPS_PER_ELEM * n)
+    del start, ker, ref, sets, refs, opts
+    torch.cuda.empty_cache()
+    return {"elements": n, "bytes": ADAM_BYTES_PER_ELEM * n, "ms": k_t["ms"],
+            "plain_ms": p_t["ms"], "library_ms": l_t["ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "share_of_bound": b_ms / k_t["ms"], "copies": copies,
+            "host_us_per_call": k_t["host_us_per_call"]}
+
+
+def _sum_arenas(*arenas):
+    """A path's Adam per round (per local epoch in standalone): one launch on
+    each of its arenas."""
+    out = {key: sum(a[key] for a in arenas)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes")}
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    return out
+
+
+def phase_kernels():
+    """Both kernels at the main path's shapes, and at each other family's,
+    against their plain versions."""
+    import torch
+
+    from mdgan_tpu_torch.core.registry import get as get_spec
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    n_g = sum(p.numel() for p in DCGANGenerator32().parameters())
-    n_d1 = sum(p.numel() for p in DCGANDiscriminator32().parameters())
-    lr, b1, b2, eps = 2e-4, 0.0, 0.999, 1e-8
 
-    adam_rec = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
-                "bound_ms": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0, "arenas": {}}
+    def sizes(dataset):
+        spec = get_spec(dataset)
+        return (sum(p.numel() for p in spec.make_generator().parameters()),
+                sum(p.numel() for p in spec.make_discriminator().parameters()))
+
+    adam_rec = {"max_abs_err": 0.0, "max_rel_err": 0.0, "arenas": {}, "families": {}}
     # the MD-GAN round's arenas (G, 8 D) add up to the record's totals; the
     # standalone round's single-D arena is checked and timed beside them
+    n_g, n_d1 = sizes("CIFAR10")
     for name, n in (("G", n_g), ("D x8", 8 * n_d1), ("D x1", n_d1)):
-        def rand(scale, positive=False):
-            t = torch.randn(n, generator=gen, device=dev) * scale
-            return t.abs() if positive else t
-        start = [rand(0.02), rand(1e-2), rand(1e-3), rand(1e-5, positive=True)]
-        ker = [t.clone() for t in start]
-        ref = [t.clone() for t in start]
-        for count in (1, 2, 3):
-            lr_c1, inv_c2 = adam.bias_scalars(lr, b1, b2, count)
-            adam.adam_update(ker[0], ker[1], ker[2], ker[3], lr_c1, inv_c2, b1, b2, eps)
-            adam.adam_plain(ref[0], ref[1], ref[2], ref[3], lr_c1, inv_c2, b1, b2, eps)
-        torch.cuda.synchronize()
-        for i in (0, 2, 3):  # p, mu, nu
-            err = (ker[i] - ref[i]).abs()
-            rel = float((err / (1e-30 + ref[i].abs())).max())
-            require(bool((err <= 1e-9 + 1e-6 * ref[i].abs()).all()),
-                    f"adam kernel vs plain on {name}: max rel err {rel}")
-            adam_rec["max_abs_err"] = max(adam_rec["max_abs_err"], float(err.max()))
-            adam_rec["max_rel_err"] = max(adam_rec["max_rel_err"], rel)
-
-        lr_c1, inv_c2 = adam.bias_scalars(lr, b1, b2, 4)
-        # consecutive timed calls rotate over enough copies of the arenas
-        # that each finds its inputs outside the L2, as a launch inside a
-        # round does (the 1-D arena alone would stay L2-resident)
-        copies = max(1, math.ceil(2 * L2_BYTES / (16 * n)))
-        sets = [ker] + [[t.clone() for t in ker] for _ in range(copies - 1)]
-        refs = [ref] + [[t.clone() for t in ref] for _ in range(copies - 1)]
-        opts = []
-        for _ in range(copies):
-            param = torch.nn.Parameter(start[0].clone())
-            param.grad = start[1].clone()
-            opts.append(torch.optim.Adam([param], lr=lr, betas=(b1, b2), eps=eps, fused=True))
-        it = itertools.count()
-        k_t = time_ms(lambda: adam.adam_update(*sets[next(it) % copies], lr_c1, inv_c2,
-                                               b1, b2, eps), 50)
-        p_t = time_ms(lambda: adam.adam_plain(*refs[next(it) % copies], lr_c1, inv_c2,
-                                              b1, b2, eps), 20)
-        l_t = time_ms(lambda: opts[next(it) % copies].step(), 50)
-        b_ms, b_by = bound_ms(ADAM_BYTES_PER_ELEM * n, ADAM_OPS_PER_ELEM * n)
-        adam_rec["arenas"][name] = {"elements": n, "ms": k_t["ms"], "plain_ms": p_t["ms"],
-                                    "library_ms": l_t["ms"], "bound_ms": b_ms, "bound_by": b_by,
-                                    "share_of_bound": b_ms / k_t["ms"], "copies": copies,
-                                    "host_us_per_call": k_t["host_us_per_call"]}
-        if name != "D x1":
-            adam_rec["ms"] += k_t["ms"]
-            adam_rec["plain_ms"] += p_t["ms"]
-            adam_rec["library_ms"] += l_t["ms"]
-            adam_rec["bound_ms"] += b_ms
-            adam_rec["bytes"] += ADAM_BYTES_PER_ELEM * n
-            adam_rec["bound_by"] = b_by
-        del start, ker, ref, sets, refs, opts
-    adam_rec["share_of_bound"] = adam_rec["bound_ms"] / adam_rec["ms"]
-    g, d1 = adam_rec["arenas"]["G"], adam_rec["arenas"]["D x1"]
-    adam_rec["standalone"] = {  # one local epoch: one launch on G, one on D
-        key: g[key] + d1[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    adam_rec["standalone"]["bytes"] = ADAM_BYTES_PER_ELEM * (n_g + n_d1)
-    torch.cuda.empty_cache()
+        adam_rec["arenas"][name] = adam_arena(gen, n, adam_rec, name)
+    g, d8, d1 = (adam_rec["arenas"][k] for k in ("G", "D x8", "D x1"))
+    main = _sum_arenas(g, d8)
+    adam_rec.update({k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",
+                                          "share_of_bound")}, bound_by=d8["bound_by"])
+    adam_rec["standalone"] = _sum_arenas(g, d1)  # one local epoch: one launch on G, one on D
+    for dataset in FAMILIES:
+        n_g, n_d1 = sizes(dataset)
+        arenas = {name: adam_arena(gen, n, adam_rec, f"{dataset} {name}")
+                  for name, n in (("G", n_g), ("D x8", 8 * n_d1), ("D x1", n_d1))}
+        adam_rec["families"][dataset] = {
+            "arenas": arenas, "mdgan": _sum_arenas(arenas["G"], arenas["D x8"]),
+            "standalone": _sum_arenas(arenas["G"], arenas["D x1"])}
     return adam_rec, phase_sampling(gen)
 
 
@@ -250,11 +298,40 @@ def phase_sampling(gen):
                        "host_us_per_call": k_t["host_us_per_call"]}
     del cifar, whole
     torch.cuda.empty_cache()
+
+    # each family's launch: 8,000 stored rows (the families phase's
+    # --max_examples) as 8 shards, or as the standalone run's one shard; a
+    # launch covers a 100-round chunk unless the cap cuts it shorter
+    families = {}
+    for dataset, (h, w, c) in FAMILIES.items():
+        stack = shards_of(8, 1000, (h, w, c))
+        row = h * w * c
+        rec = {}
+        for path, n, view in (("mdgan", 8, stack), ("standalone", 1, stack.view(1, 8000, h, w, c))):
+            t = min(100, SAMPLING_CAP_BYTES // (n * 10 * row * 4))
+            s_rows = view.shape[1]
+            cases[f"{dataset}_{path}_T{t}"] = check(f"{dataset} {path}", view,
+                                                    indices(t, n, 10, s_rows))
+            rows = t * n * 10
+            k = max(8, math.ceil(2 * L2_BYTES / (rows * row)))
+            pool = [indices(t, n, 10, s_rows) for _ in range(k)]
+            it = itertools.count()
+            k_t = time_ms(lambda: sampling.sample_normalize(view, pool[next(it) % k]), 20)
+            p_t = time_ms(lambda: sampling.sample_normalize_plain(view, pool[next(it) % k]), 10)
+            nbytes = rows * (4 + row + 4 * row)
+            b_ms, b_by = bound_ms(nbytes, 2 * rows * row)
+            rec[path] = {"rounds_per_launch": t, "rows": rows, "bytes": nbytes, "ms": k_t["ms"],
+                         "plain_ms": p_t["ms"], "bound_ms": b_ms, "bound_by": b_by,
+                         "share_of_bound": b_ms / k_t["ms"],
+                         "host_us_per_call": k_t["host_us_per_call"]}
+        families[dataset] = rec
+        del stack
+        torch.cuda.empty_cache()
     main = timed["chunk_T100"]
     return {"ms": main["ms"], "plain_ms": main["plain_ms"], "library_ms": None,
             "bytes": main["bytes"], "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
-            "timed": timed, "cases": cases}
+            "timed": timed, "families": families, "cases": cases}
 
 
 def phase_golden():
@@ -320,6 +397,116 @@ def phase_round():
              float((res["cpu"][2] - res["cuda"][2]).abs().max()))
     require(dp <= 2.05 * lr * rounds, f"round params: card vs CPU max |diff| {dp}")
     return {"metric_max_rel_err": worst, "param_max_abs_diff": dp}
+
+
+# narrow family configurations for the card-vs-CPU rounds: dataset, the
+# port's width keywords, the image shape the narrow model makes
+NARROW_FAMILIES = {
+    "MNIST": ({}, (28, 28, 1)),
+    "CelebA": ({"ngf": 8, "ndf": 8}, (64, 64, 3)),
+    "FFHQ128": ({"max_res": 32, "base_features": 32, "map_layers": 2}, (32, 32, 3)),
+}
+
+
+def _dropout_masks(rng, paths, b):
+    """Keep masks for the MLP discriminator's three dropout layers at every
+    key path of a round, from a numpy RNG, so the card and the CPU draw the
+    same (their torch generators would not)."""
+    import torch
+
+    from mdgan_tpu_torch.models import mlp_gan
+
+    return {path: [torch.from_numpy(rng.uniform(size=(b, d)) < mlp_gan.KEEP)
+                   for d in mlp_gan.D_DIMS] for path in paths}
+
+
+def _zero_conv_biases(net):
+    """Zero every conv bias that BatchNorm follows (DCGAN-64's blocks 1 and
+    2) in an arena-backed discriminator."""
+    import torch
+
+    from mdgan_tpu_torch.models.layers import ConvBlock
+
+    with torch.no_grad():
+        for module in net.modules:
+            for m in module.modules():
+                if isinstance(m, ConvBlock) and m.bn is not None and m.conv.bias is not None:
+                    m.conv.bias.zero_()
+
+
+def phase_family_rounds():
+    """Each other family, narrow: two MD-GAN rounds (N=2, b=4) and two
+    standalone rounds on the card against the same rounds on the CPU,
+    float32 with TF32 off; latents, indices and (MLP) dropout masks
+    injected.  The losses may part by ~1e-3 relative: a first Adam step
+    moves each element by lr*sign(g), and the elements whose gradient sits
+    at float noise (DCGAN-64's conv biases before BatchNorm have a zero
+    gradient) flip between devices; a later step moves an element by at
+    most lr*sqrt(2).  DCGAN-64's biased convs start from zero bias: at
+    their init a channel's mean can dwarf its spread, and BatchNorm's
+    E[x^2] - E[x]^2 then cancels in float32 differently on each device
+    (ROADMAP.md C.3)."""
+    import numpy as np
+    import torch
+
+    from mdgan_tpu_torch.core.config import TrainConfig
+    from mdgan_tpu_torch.core.registry import get as get_spec
+    from mdgan_tpu_torch.data.builtin import synthesize
+    from mdgan_tpu_torch.data.partitioner import shard_data
+    from mdgan_tpu_torch.engine.mdgan import MDGANEngine
+    from mdgan_tpu_torch.engine.standalone import StandaloneEngine
+
+    n, b, rounds, lr = 2, 4, 2, 2e-4
+    out = {}
+    for dataset, (kw, shape) in NARROW_FAMILIES.items():
+        spec = get_spec(dataset)
+        data = synthesize(shape, 48, seed=7)[0]
+        shards_np, _ = shard_data(data, n, iid=True)
+        rng = np.random.default_rng(1)
+        mdgan_idx = rng.integers(0, shards_np.shape[1], (rounds, n, b)).astype(np.int32)
+        sa_idx = rng.integers(0, len(data), (rounds, 1, b)).astype(np.int32)
+        z_md = rng.standard_normal((rounds, 2 * b, spec.z_dim)).astype(np.float32)
+        z_sa = rng.standard_normal((rounds, b, spec.z_dim)).astype(np.float32)
+        use_masks = dataset == "MNIST"
+        masks_md = [_dropout_masks(rng, [(0, w, h) for w in range(n) for h in (0, 1)]
+                                   + [(1, w) for w in range(n)], b) for _ in range(rounds)]
+        masks_sa = [_dropout_masks(rng, [(0, 0, 0), (0, 0, 1), (0, 1)], b)
+                    for _ in range(rounds)]
+        res = {}
+        for dev in ("cpu", "cuda"):
+            def on(masks):
+                return ({k: [m.to(dev) for m in v] for k, v in masks.items()}
+                        if use_masks else None)
+            cfg = TrainConfig(batch_size=b, compute_dtype="float32", device=dev)
+            eng = MDGANEngine(spec, cfg, n, model_kwargs=kw)
+            st = eng.init_state(3)
+            _zero_conv_biases(st.d)
+            shards = eng.shard_data(shards_np)
+            ms = [eng.step(st, shards, eng.put_indices(mdgan_idx[t], shards_np.shape[1]),
+                           z=torch.from_numpy(z_md[t]).to(dev), masks=on(masks_md[t]))
+                  for t in range(rounds)]
+            sa = StandaloneEngine(spec, cfg, model_kwargs=kw)
+            sst = sa.init_state(3)
+            _zero_conv_biases(sst.d)
+            whole = sa.put_data(data)
+            sms = [sa.step(sst, whole, sa.put_indices(sa_idx[t], len(data)),
+                           z=torch.from_numpy(z_sa[t]).to(dev), masks=on(masks_sa[t]))
+                   for t in range(rounds)]
+            res[dev] = (
+                {**{k: np.stack([m[k].cpu().numpy() for m in ms])
+                    for k in ("mean_d_loss", "g_feedback_loss", "feedback_norm")},
+                 **{f"standalone {k}": np.array([float(m[k]) for m in sms])
+                    for k in ("mean_d_loss", "mean_g_loss")}},
+                [t.params.cpu() for t in (st.g, st.d, sst.g, sst.d)])
+        worst = max(float(np.max(np.abs(a - res["cuda"][0][k]) / np.abs(a)))
+                    for k, a in res["cpu"][0].items())
+        require(worst <= 2e-3, f"{dataset} narrow rounds: card vs CPU rel err {worst}")
+        dp = max(float((a - c).abs().max()) for a, c in zip(res["cpu"][1], res["cuda"][1]))
+        require(dp <= 1.45 * 2 * lr * rounds,
+                f"{dataset} narrow rounds: card vs CPU params max |diff| {dp}")
+        out[dataset] = {"metric_max_rel_err": worst, "param_max_abs_diff": dp,
+                        "width_kwargs": kw}
+    return out
 
 
 @contextlib.contextmanager
@@ -472,6 +659,88 @@ def phase_standalone(rounds: int = 30, local_epochs: int = 1):
                                       / (r1["elapsed_s"] - r0["elapsed_s"]))
     return {**summary, "chunks": chunks, "launches": launched, "log": logs,
             "narrow_round": phase_standalone_round(), "defaults": cli_defaults()}, launched
+
+
+def sampling_launches(chunks, n, shape):
+    """Sampling launches of a run's chunks at N=n, b=10: one a chunk, or as
+    many as keep each launch's float32 output within SAMPLING_CAP_BYTES."""
+    per_round = n * 10 * shape[0] * shape[1] * shape[2] * 4
+    span = max(1, SAMPLING_CAP_BYTES // per_round)
+    return sum(-(-t // span) for t in chunks)
+
+
+def phase_families(rounds: int = 10):
+    """Each other family at full width through the CLI: MD-GAN (N=8, b=10,
+    --swap_interval 5) in float32 and bfloat16 and standalone in float32,
+    ``rounds`` rounds on 8,000 examples each, launches counted from the
+    run; then the capped gather of a 40-round chunk at 128x128x3."""
+    from mdgan_tpu_torch.ops import adam, sampling
+
+    out = {}
+    for dataset, shape in FAMILIES.items():
+        runs = {}
+        for name, mode, dtype in (("mdgan_float32", "mdgan", "float32"),
+                                  ("mdgan_bfloat16", "mdgan", "bfloat16"),
+                                  ("standalone_float32", "standalone", "float32")):
+            argv = ["--mode", mode, "--dataset", dataset, "--num_workers", "8",
+                    "--batch_size", "10", "--epochs", str(rounds), "--swap_interval", "5",
+                    "--log_interval", "5", "--max_examples", "8000", "--compute_dtype", dtype]
+            adam.adam_update.launches = 0
+            sampling.sample_normalize.launches = 0
+            t = time.perf_counter()
+            summary, logs = run_main(argv)
+            seconds = time.perf_counter() - t
+            launched = {"adam": adam.adam_update.launches,
+                        "sampling": sampling.sample_normalize.launches}
+            n = 8 if mode == "mdgan" else 1
+            chunks = cli_chunks(rounds, 5 if mode == "mdgan" else 0, 5, 100, 3000)
+            want = {"adam": 2 * rounds, "sampling": sampling_launches(chunks, n, shape)}
+            require(summary["all_finite"], f"{dataset} {name}: non-finite losses")
+            require(launched == want, f"{dataset} {name}: launches {launched}, want {want} "
+                                      f"(chunks {chunks})")
+            want_evals = [0, 5, rounds - 1] if mode == "mdgan" else [0, 5]
+            require([e["epoch"] for e in summary["evals"]] == want_evals
+                    and all(math.isfinite(e["fid"]) and math.isfinite(e["is"])
+                            for e in summary["evals"]),
+                    f"{dataset} {name}: evals {summary['evals']}")
+            if mode == "mdgan":
+                require(summary["swaps"] == (rounds - 1) // 5,
+                        f"{dataset} {name}: {summary['swaps']} swaps")
+            runs[name] = {**{k: summary[k] for k in ("rounds", "wall_time_s", "steps_per_sec",
+                                                     "final_mean_d_loss", "evals")},
+                          "seconds": seconds, "chunks": chunks, "launches": launched,
+                          "log": logs}
+        out[dataset] = runs
+    out["capped_gather"] = _capped_gather_check()
+    return out
+
+
+def _capped_gather_check(rounds: int = 40):
+    """The MD-GAN engine's gather of a 40-round chunk of 128x128x3 rows
+    (N=8, b=10: 629 MB of float32) in launches of at most 256 MiB, against
+    the plain gather of the whole chunk, bit for bit."""
+    import numpy as np
+    import torch
+
+    from mdgan_tpu_torch.core.config import TrainConfig
+    from mdgan_tpu_torch.core.registry import get as get_spec
+    from mdgan_tpu_torch.engine.mdgan import MDGANEngine
+    from mdgan_tpu_torch.ops import sampling
+
+    shape = FAMILIES["FFHQ128"]
+    eng = MDGANEngine(get_spec("FFHQ128"), TrainConfig(), 8)
+    rng = np.random.default_rng(5)
+    shards = eng.shard_data(rng.integers(0, 256, (8, 200, *shape), dtype=np.uint8))
+    idx = eng.put_indices(rng.integers(0, 200, (rounds, 8, 10)), 200)
+    sampling.sample_normalize.launches = 0
+    got = torch.stack(list(eng._real_batches(shards, idx)))
+    launched = sampling.sample_normalize.launches
+    want = sampling.sample_normalize_plain(shards, idx)
+    require(launched == sampling_launches([rounds], 8, shape),
+            f"capped gather: {launched} launches, want {sampling_launches([rounds], 8, shape)}")
+    require(torch.equal(got, want), "capped gather differs from the plain gather")
+    return {"rounds": rounds, "launches": launched, "bit_equal": True,
+            "bytes": got.numel() * 4}
 
 
 def cli_defaults(rounds: int = 5):
@@ -650,57 +919,76 @@ def _eval_and_checkpoint_times():
     return out
 
 
-def phase_profile(rounds: int = 5):
-    """Where a round's time goes (CIFAR10, b=10, full width; MD-GAN with
-    N=8 in float32 and bfloat16, and the standalone round in float32): host
-    wall per round over 20 warm rounds, then one torch.profiler window of
-    ``rounds`` rounds for device time by kernel."""
+def profile_rounds(eng, shards, sampler, warm: int, timed: int, rounds: int):
+    """Host wall per round over ``timed`` rounds after ``warm``, then one
+    torch.profiler window of ``rounds`` rounds for device time by kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    st = eng.init_state(1)
+    eng.run_rounds(st, shards, sampler, warm)  # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng.run_rounds(st, shards, sampler, timed)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) / timed * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.run_rounds(st, shards, sampler, rounds)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3 / rounds
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    return {
+        "host_ms_per_round": host_ms, "rounds_per_s": 1e3 / host_ms,
+        "device_ms_per_round": dev_ms if kern else None,
+        "device_busy_share": dev_ms / host_ms if kern else None,
+        "kernels_per_round": sum(e.count for e in kern) / rounds,
+        "top": [{"name": e.key[:80], "ms_per_round": e.self_device_time_total / 1e3 / rounds,
+                 "per_round": e.count / rounds} for e in top]}
+
+
+def phase_profile(rounds: int = 5):
+    """Where a round's time goes at full width: CIFAR10 (DCGAN-32) MD-GAN
+    with N=8 in float32 and bfloat16 and the standalone round in float32
+    (20 timed rounds), then the same three for each other family on 8,000
+    examples (10 timed rounds, 3 profiled).  Adam and sampling launches a
+    round are counted in the timed rounds."""
     from mdgan_tpu_torch.core.config import TrainConfig
     from mdgan_tpu_torch.core.registry import get as get_spec
     from mdgan_tpu_torch.data.partitioner import shard_data
     from mdgan_tpu_torch.data.sampler import ShardSampler
     from mdgan_tpu_torch.engine.mdgan import MDGANEngine
     from mdgan_tpu_torch.engine.standalone import StandaloneEngine
+    from mdgan_tpu_torch.ops import adam, sampling
 
-    spec = get_spec("CIFAR10")
-    data = spec.load("data")[0]
-    shards_np, _ = shard_data(data, 8, iid=True, seed=0)
     out = {}
-    for name, dtype in (("float32", "float32"), ("bfloat16", "bfloat16"),
-                        ("standalone_float32", "float32")):
-        if name.startswith("standalone"):
-            eng = StandaloneEngine(spec, TrainConfig(compute_dtype=dtype))
-            shards = eng.put_data(data)
-            sampler = ShardSampler(1, len(data), 10, seed=0)
+    for dataset, max_examples, counts in (("CIFAR10", None, (10, 20, rounds)),
+                                          *((d, 8000, (3, 10, 3)) for d in FAMILIES)):
+        spec = get_spec(dataset)
+        data = spec.load("data", max_examples=max_examples)[0]
+        shards_np, _ = shard_data(data, 8, iid=True, seed=0)
+        rec = {}
+        for name, dtype in (("float32", "float32"), ("bfloat16", "bfloat16"),
+                            ("standalone_float32", "float32")):
+            if name.startswith("standalone"):
+                eng = StandaloneEngine(spec, TrainConfig(compute_dtype=dtype))
+                shards = eng.put_data(data)
+                sampler = ShardSampler(1, len(data), 10, seed=0)
+            else:
+                eng = MDGANEngine(spec, TrainConfig(compute_dtype=dtype), 8)
+                shards = eng.shard_data(shards_np)
+                sampler = ShardSampler(8, shards_np.shape[1], 10, seed=0)
+            adam.adam_update.launches = sampling.sample_normalize.launches = 0
+            rec[name] = profile_rounds(eng, shards, sampler, *counts)
+            total = sum(counts)
+            rec[name]["adam_launches_per_round"] = adam.adam_update.launches / total
+            rec[name]["sampling_launches"] = sampling.sample_normalize.launches
+            del shards
+        if dataset == "CIFAR10":
+            out.update(rec)
         else:
-            eng = MDGANEngine(spec, TrainConfig(compute_dtype=dtype), 8)
-            shards = eng.shard_data(shards_np)
-            sampler = ShardSampler(8, shards_np.shape[1], 10, seed=0)
-        st = eng.init_state(1)
-        eng.run_rounds(st, shards, sampler, 10)  # warm-up
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        eng.run_rounds(st, shards, sampler, 20)
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t) / 20 * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            eng.run_rounds(st, shards, sampler, rounds)
-            torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        dev_ms = sum(e.self_device_time_total for e in kern) / 1e3 / rounds
-        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-        out[name] = {
-            "host_ms_per_round": host_ms, "rounds_per_s": 1e3 / host_ms,
-            "device_ms_per_round": dev_ms if kern else None,
-            "device_busy_share": dev_ms / host_ms if kern else None,
-            "kernels_per_round": sum(e.count for e in kern) / rounds,
-            "top": [{"name": e.key[:80], "ms_per_round": e.self_device_time_total / 1e3 / rounds,
-                     "per_round": e.count / rounds} for e in top]}
-        del st, shards
+            out[dataset] = rec
     return out
 
 
@@ -747,6 +1035,7 @@ def main() -> int:
 
     t = time.perf_counter()
     rec = phase_round()
+    rec["families"] = phase_family_rounds()
     emit({"phase": "round", "seconds": time.perf_counter() - t, **rec})
 
     torch.backends.cudnn.allow_tf32 = True  # the library default, as a user runs
@@ -764,6 +1053,10 @@ def main() -> int:
     emit({"phase": "trainer", "seconds": time.perf_counter() - t, "card": smi, **rec})
 
     t = time.perf_counter()
+    fam_runs = phase_families()
+    emit({"phase": "families", "seconds": time.perf_counter() - t, "card": smi, **fam_runs})
+
+    t = time.perf_counter()
     rec = phase_profile()
     emit({"phase": "profile", "seconds": time.perf_counter() - t, "card": smi, **rec})
 
@@ -775,6 +1068,16 @@ def main() -> int:
         "sampling": {"mdgan": {k: samp_rec[k] for k in ("ms", "plain_ms", "bound_ms")},
                      "standalone": {k: sa_samp[k] for k in ("ms", "plain_ms", "bound_ms")}},
     }
+    # each family's paths: the kernels' times at that path's shapes (Adam a
+    # round or a local epoch, sampling a launch), launches from its CLI runs
+    for dataset in FAMILIES:
+        for run, mode in (("mdgan_float32", "mdgan"), ("mdgan_bfloat16", "mdgan"),
+                          ("standalone_float32", "standalone")):
+            path = f"{dataset}_{run}"
+            paths[path] = fam_runs[dataset][run]["launches"]
+            by_path["adam"][path] = dict(adam_rec["families"][dataset][mode])
+            by_path["sampling"][path] = {k: samp_rec["families"][dataset][mode][k] for k in (
+                "ms", "plain_ms", "bound_ms", "rounds_per_launch")}
     kernels = []
     for name, key, source, replaces, rec in (
             ("adam", "adam", "mdgan_tpu_torch/csrc/adam.cu", "mdgan_tpu/ops/adam.py:43",

@@ -16,8 +16,10 @@ no GPU present they raise.
 
 Layout (mirrors ``mdgan_tpu``):
     core/      config dataclasses, dataset registry, random lanes, device choice
-    data/      CIFAR-10 / synthetic loaders, partitioner, sampler
-    models/    DCGAN-32, flax-convention BatchNorm, JAX weight import/export
+    data/      MNIST / CIFAR-10 / CelebA / FFHQ-128 / synthetic loaders,
+               partitioner, sampler
+    models/    DCGAN-32, MLP-GAN, DCGAN-64, StyleGAN2, flax-convention
+               BatchNorm, JAX weight import/export
     ops/       losses and the CUDA kernel wrappers (+ their build)
     engine/    arena-backed network state, the MD-GAN and standalone rounds,
                the trainers (host loop, evals, exports, checkpoints)

@@ -23,10 +23,12 @@ EVAL = 6
 STRAGGLER = 7
 
 
-def seed_for(seed: int, tag: int, step: int = 0) -> int:
+def seed_for(seed: int, tag: int, step: int = 0, *path: int) -> int:
     """A 63-bit seed for lane ``tag`` at ``step`` (a worker index for the
-    per-worker init lanes)."""
-    state = np.random.SeedSequence((seed, tag, step)).generate_state(2, np.uint32)
+    per-worker init lanes), and below it at ``path``: the DROPOUT lane keys
+    each forward by (local epoch, worker, half) as the JAX engines fold their
+    dropout key."""
+    state = np.random.SeedSequence((seed, tag, step, *path)).generate_state(2, np.uint32)
     return ((int(state[0]) << 32) | int(state[1])) & (2**63 - 1)
 
 
@@ -37,8 +39,8 @@ def generator(seed: int, tag: int, step: int = 0, device="cpu") -> torch.Generat
     return g
 
 
-def reseed(g: torch.Generator, seed: int, tag: int, step: int) -> torch.Generator:
+def reseed(g: torch.Generator, seed: int, tag: int, step: int, *path: int) -> torch.Generator:
     """Re-seed an existing generator in place (one per device and lane is
     kept by the engine, so a round allocates no generator)."""
-    g.manual_seed(seed_for(seed, tag, step))
+    g.manual_seed(seed_for(seed, tag, step, *path))
     return g

@@ -1,23 +1,16 @@
 """Dataset/model registry (port of ``mdgan_tpu/core/registry.py``).
 
 Its own :class:`DatasetSpec`, :func:`register` and :func:`get`: the JAX
-registry imports its built-ins, which pull in flax.  The port registers
-``CIFAR10`` and ``Synthetic32`` (``data/builtin.py``); the other datasets of
-the JAX package wait for their model families.
+registry imports its built-ins, which pull in flax.  The port registers the
+JAX package's six datasets (``data/builtin.py``): ``MNIST`` and
+``SyntheticMNIST`` (MLP-GAN), ``CIFAR10`` and ``Synthetic32`` (DCGAN-32),
+``CelebA`` (DCGAN-64) and ``FFHQ128`` (StyleGAN2).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
-
-# Datasets the JAX package has and the port does not yet.
-_NOT_PORTED = {
-    "MNIST": "ROADMAP.md A.5 (MLP-GAN)",
-    "SyntheticMNIST": "ROADMAP.md A.5 (MLP-GAN)",
-    "CelebA": "ROADMAP.md A.5 (DCGAN-64)",
-    "FFHQ128": "ROADMAP.md A.5 (StyleGAN2)",
-}
+from typing import Callable, Dict, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,8 +19,11 @@ class DatasetSpec:
 
     ``shape`` is the stored image shape (H, W, C) of the uint8 data (the
     loaders return NHWC bytes, as in the JAX package); the models take NCHW.
-    ``make_generator``/``make_discriminator`` build ``nn.Module``s and accept
-    width keywords (``ngf``/``ndf``).
+    ``make_generator``/``make_discriminator`` build ``nn.Module``s; the
+    width keywords each accepts are named in ``g_widths``/``d_widths`` (the
+    engines pass those of their ``model_kwargs``).  ``init_weights(module,
+    gen)`` draws a module's weights in place from a ``torch.Generator``
+    (None: the DCGAN init, ``models/layers.py:dcgan_init_``).
     """
 
     name: str
@@ -36,6 +32,9 @@ class DatasetSpec:
     make_generator: Callable[..., object]
     make_discriminator: Callable[..., object]
     load: Callable[..., Tuple[object, object]]
+    init_weights: Optional[Callable[..., object]] = None
+    g_widths: Tuple[str, ...] = ("ngf",)
+    d_widths: Tuple[str, ...] = ("ndf",)
 
 
 _REGISTRY: Dict[str, DatasetSpec] = {}
@@ -52,10 +51,6 @@ def get(name: str) -> DatasetSpec:
     _ensure_builtin()
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported to mdgan_tpu_torch yet: "
-            f"{_NOT_PORTED[name]}")
     raise KeyError(f"unknown dataset {name!r}; available: {sorted(_REGISTRY)}")
 
 

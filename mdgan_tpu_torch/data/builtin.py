@@ -1,22 +1,32 @@
-"""Built-in dataset plugins: CIFAR-10 and Synthetic32.
+"""Built-in dataset plugins: MNIST, CIFAR-10, CelebA, FFHQ-128 and the
+procedural Synthetic32 / SyntheticMNIST.
 
 Copies of ``mdgan_tpu/data/builtin.py:36-77`` (:func:`synthesize`),
-``:132-163`` (:func:`load_cifar10`, python-pickle path and synthetic
-fallback) and ``:219-241`` (the two registry entries).  Output bytes are
-identical to the JAX package's (a test holds them equal).  Images are uint8
-NHWC; normalization to [-1, 1] happens on the device at sample time.
+``:83-281`` (the idx reader and :func:`load_mnist`'s Python path,
+:func:`load_cifar10`'s python-pickle path, :func:`load_celeba`,
+:func:`load_ffhq128`, each with its synthetic fallback) and the six registry
+entries.  Output bytes are identical to the JAX package's (tests hold them
+equal).  Images are uint8 NHWC; normalization to [-1, 1] happens on the
+device at sample time.
+
+Not copied: the native decoders of ``mdgan_tpu/data/native`` (ROADMAP.md
+A.9).  For raw MNIST idx files the JAX package's native decoder yields the
+same bytes as the Python path used here; a CIFAR-10 ``.bin`` folder raises.
 """
 
 from __future__ import annotations
 
+import gzip
+import os
 import pickle
+import struct
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
 from mdgan_tpu_torch.core import registry
-from mdgan_tpu_torch.models import dcgan32
+from mdgan_tpu_torch.models import dcgan32, dcgan64, layers, mlp_gan, stylegan2
 
 
 def synthesize(
@@ -53,12 +63,46 @@ def synthesize(
     return out, labels
 
 
+def _read_idx(path: Path) -> np.ndarray:
+    opener = gzip.open if path.suffix == ".gz" else open
+    with opener(path, "rb") as f:
+        magic = struct.unpack(">I", f.read(4))[0]
+        ndim = magic & 0xFF
+        dims = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+        return np.frombuffer(f.read(), dtype=np.uint8).reshape(dims)
+
+
 def _find(data_dir: str, *candidates: str) -> Optional[Path]:
     for cand in candidates:
         p = Path(data_dir) / cand
         if p.exists():
             return p
     return None
+
+
+def _idx_candidates(stem: str, kind: str) -> Tuple[str, ...]:
+    name = f"{stem}-{kind}"
+    return (f"mnist/{name}", f"mnist/{name}.gz", f"mnist/MNIST/raw/{name}",
+            f"mnist/MNIST/raw/{name}.gz", name, f"{name}.gz")
+
+
+def load_mnist(data_dir: str, split: str = "train", fallback: str = "synthetic",
+               max_examples: Optional[int] = None):
+    """MNIST from idx files (raw or ``.gz``, any of the usual layouts), else
+    synthetic (``builtin.py:89-129``)."""
+    stem = "train" if split == "train" else "t10k"
+    img = _find(data_dir, *_idx_candidates(stem, "images-idx3-ubyte"))
+    if img is None:
+        if fallback != "synthetic":
+            raise FileNotFoundError(f"MNIST raw files not found under {data_dir}")
+        n = max_examples or (60000 if split == "train" else 10000)
+        return synthesize((28, 28, 1), n, seed=28)
+    lbl = _find(data_dir, *_idx_candidates(stem, "labels-idx1-ubyte"))
+    data = _read_idx(img)[..., None]  # (n, 28, 28, 1)
+    labels = _read_idx(lbl).astype(np.int64) if lbl else np.zeros(len(data), np.int64)
+    if max_examples:
+        data, labels = data[:max_examples], labels[:max_examples]
+    return data, labels
 
 
 def load_cifar10(data_dir: str, split: str = "train", fallback: str = "synthetic",
@@ -89,22 +133,91 @@ def load_cifar10(data_dir: str, split: str = "train", fallback: str = "synthetic
     return np.ascontiguousarray(data), labels
 
 
+def load_celeba(data_dir: str, split: str = "train", fallback: str = "synthetic",
+                max_examples: Optional[int] = None):
+    """CelebA 64x64: packed npz if present, else the jpg folder through PIL
+    (when PIL imports), else synthetic (``builtin.py:166-212``).  The
+    reference center-crops and resizes to 64x64 (``src/datasets/CelebA.py:29-35``)."""
+    npz = _find(data_dir, "celeba/celeba64.npz", "celeba64.npz")
+    if npz is not None:
+        return _load_npz(npz, max_examples)
+    imgdir = _find(data_dir, "celeba/img_align_celeba", "img_align_celeba")
+    if imgdir is not None:
+        try:
+            from PIL import Image
+        except ImportError:
+            imgdir = None
+    if imgdir is not None:
+        names = sorted(os.listdir(imgdir))
+        if max_examples:
+            names = names[:max_examples]
+        out = np.empty((len(names), 64, 64, 3), np.uint8)
+        for i, name in enumerate(names):
+            im = Image.open(imgdir / name).convert("RGB")
+            # center-crop to square then resize, as torchvision does
+            w, h = im.size
+            side = min(w, h)
+            im = im.crop(((w - side) // 2, (h - side) // 2, (w + side) // 2, (h + side) // 2))
+            out[i] = np.asarray(im.resize((64, 64), Image.BILINEAR), np.uint8)
+        return out, np.zeros(len(out), np.int64)
+    if fallback != "synthetic":
+        raise FileNotFoundError(f"CelebA files not found under {data_dir}")
+    n = min(max_examples or 202599, 50000)  # keep the synthetic stand-in a sane size
+    return synthesize((64, 64, 3), n, seed=64)
+
+
+def load_ffhq128(data_dir: str, split: str = "train", fallback: str = "synthetic",
+                 max_examples: Optional[int] = None):
+    """FFHQ-128: packed npz of (n, 128, 128, 3) uint8 if present, else
+    synthetic (``builtin.py:261-277``)."""
+    npz = _find(data_dir, "ffhq/ffhq128.npz", "ffhq128.npz")
+    if npz is not None:
+        return _load_npz(npz, max_examples)
+    if fallback != "synthetic":
+        raise FileNotFoundError(f"FFHQ-128 files not found under {data_dir}")
+    n = min(max_examples or 20000, 20000)
+    return synthesize((128, 128, 3), n, seed=128)
+
+
+def _load_npz(path: Path, max_examples: Optional[int]):
+    with np.load(path) as z:
+        data = z["images"]
+        labels = z.get("labels", np.zeros(len(data), np.int64))
+    if max_examples:
+        data, labels = data[:max_examples], labels[:max_examples]
+    return data, labels
+
+
 def load_synthetic32(data_dir: str, split: str = "train", fallback: str = "synthetic",
                      max_examples: Optional[int] = None):
     """Always procedural, whatever is on disk (``builtin.py:233-241``)."""
     return synthesize((32, 32, 3), max_examples or 50000, seed=32)
 
 
-registry.register(registry.DatasetSpec(
-    name="CIFAR10", shape=dcgan32.SHAPE, z_dim=dcgan32.Z_DIM,
-    make_generator=dcgan32.DCGANGenerator32,
-    make_discriminator=dcgan32.DCGANDiscriminator32,
-    load=load_cifar10,
-))
+def load_synthetic_mnist(data_dir: str, split: str = "train", fallback: str = "synthetic",
+                         max_examples: Optional[int] = None):
+    """Always procedural, whatever is on disk (``builtin.py:243-249``)."""
+    return synthesize((28, 28, 1), max_examples or 60000, seed=28)
 
-registry.register(registry.DatasetSpec(
-    name="Synthetic32", shape=dcgan32.SHAPE, z_dim=dcgan32.Z_DIM,
-    make_generator=dcgan32.DCGANGenerator32,
-    make_discriminator=dcgan32.DCGANDiscriminator32,
-    load=load_synthetic32,
-))
+
+def _register(name, module, g, d, load, **extra):
+    registry.register(registry.DatasetSpec(
+        name=name, shape=module.SHAPE, z_dim=module.Z_DIM, make_generator=g,
+        make_discriminator=d, load=load, **extra))
+
+
+_MLP = dict(init_weights=layers.torch_linear_init_, g_widths=(), d_widths=())
+_register("MNIST", mlp_gan, mlp_gan.MLPGenerator, mlp_gan.MLPDiscriminator, load_mnist, **_MLP)
+_register("CIFAR10", dcgan32, dcgan32.DCGANGenerator32, dcgan32.DCGANDiscriminator32,
+          load_cifar10)
+_register("CelebA", dcgan64, dcgan64.DCGANGenerator64, dcgan64.DCGANDiscriminator64,
+          load_celeba)
+_register("Synthetic32", dcgan32, dcgan32.DCGANGenerator32, dcgan32.DCGANDiscriminator32,
+          load_synthetic32)
+_register("SyntheticMNIST", mlp_gan, mlp_gan.MLPGenerator, mlp_gan.MLPDiscriminator,
+          load_synthetic_mnist, **_MLP)
+_register("FFHQ128", stylegan2, stylegan2.StyleGAN2Generator,
+          stylegan2.StyleGAN2Discriminator, load_ffhq128,
+          init_weights=stylegan2.stylegan2_init_,
+          g_widths=("base_features", "max_res", "map_layers"),
+          d_widths=("base_features", "max_res"))

@@ -24,12 +24,23 @@ Swaps (``sample_swap_perm``/``swap``, ``:531-590``) permute the
 discriminators' params and BN stats; Adam moments stay put unless
 ``swap_opt_state``.  A loop over the N discriminators is the first form;
 batching them into grouped convolutions is later work.
+
+A discriminator with dropout (the MLP's) draws its masks from the DROPOUT
+lane, keyed as the JAX engine folds its dropout key (``:252-268, 287-288``):
+the D step's forwards by (step, local epoch l, worker w, half: 0 real, 1
+fake), the feedback forward by (step, local_epochs, w).  Tests inject the
+JAX side's masks by the same keys instead.
+
+A chunk's real batches are gathered in as few sampling launches as keep
+each launch's output within ``GATHER_CAP_BYTES`` (256 MiB): one launch a
+chunk at CIFAR-10 (98 MB for 100 rounds at N=8, b=10), several at
+128x128x3 (1.57 GB).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,44 +53,79 @@ from mdgan_tpu_torch.models.layers import dcgan_init_
 from mdgan_tpu_torch.ops import losses
 from mdgan_tpu_torch.ops.sampling import sample_normalize
 
+# the most float32 bytes one sampling launch of a chunk writes
+GATHER_CAP_BYTES = 256 * 2 ** 20
+# injected dropout masks: the key path of a D forward -> its layers' keep masks
+Masks = Dict[Tuple[int, ...], Sequence[torch.Tensor]]
+
 
 class EngineBase:
     """What both engines share: the device, the compute dtype, the latent
-    lane, index upload and generator sampling."""
+    and dropout lanes, the family's init, index upload, the chunk's gather
+    and generator sampling."""
 
     def __init__(self, spec: DatasetSpec, train_cfg: TrainConfig,
                  model_kwargs: Optional[Dict] = None):
         """``train_cfg.device`` picks the device (None: cuda, raising when
-        there is none); ``model_kwargs`` passes widths (``ngf``, ``ndf``)
-        to the model factories."""
+        there is none); ``model_kwargs`` passes width keywords to the model
+        factories, each to the nets whose ``spec.g_widths``/``d_widths``
+        name it (``ngf``/``ndf`` for the DCGANs; ``base_features``,
+        ``max_res`` and ``map_layers`` for StyleGAN2)."""
         for opt in (train_cfg.generator_opt, train_cfg.discriminator_opt):
             if (opt.mu_dtype, opt.nu_dtype) != ("float32", "float32"):
                 raise NotImplementedError(
                     "bfloat16 Adam moments are not ported yet (ROADMAP.md A.6)")
         if train_cfg.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {train_cfg.compute_dtype!r}")
+        unknown = set(model_kwargs or {}) - set(spec.g_widths) - set(spec.d_widths)
+        if unknown:
+            raise ValueError(f"{spec.name} takes no width keywords {sorted(unknown)}; "
+                             f"it takes {sorted(set(spec.g_widths) | set(spec.d_widths))}")
         self.spec = spec
         self.cfg = train_cfg
         self.device = resolve_device(train_cfg.device)
         self.model_kwargs = dict(model_kwargs or {})
         self._bf16 = train_cfg.compute_dtype == "bfloat16"
         self._zgen = torch.Generator(device=self.device)
+        self._dropgen = torch.Generator(device=self.device)
+        self._init = spec.init_weights or dcgan_init_
 
-    def _kw(self, width: str) -> Dict:
-        return {width: self.model_kwargs[width]} if width in self.model_kwargs else {}
+    def _kw(self, widths: Sequence[str]) -> Dict:
+        return {k: self.model_kwargs[k] for k in widths if k in self.model_kwargs}
 
     def new_generator(self, seed: int) -> NetState:
         """A generator on the device, initialized from lane INIT_G (drawn on
         the CPU, so every device starts from the same weights)."""
-        g = dcgan_init_(self.spec.make_generator(**self._kw("ngf")),
-                        prng.generator(seed, prng.INIT_G))
+        g = self._init(self.spec.make_generator(**self._kw(self.spec.g_widths)),
+                       prng.generator(seed, prng.INIT_G))
         return NetState([g], self.device)
 
     def _new_discriminators(self, seed: int, n: int) -> NetState:
         """n discriminators, copy w from lane (INIT_D, w)."""
-        return NetState([dcgan_init_(self.spec.make_discriminator(**self._kw("ndf")),
-                                     prng.generator(seed, prng.INIT_D, w))
+        return NetState([self._init(self.spec.make_discriminator(**self._kw(self.spec.d_widths)),
+                                    prng.generator(seed, prng.INIT_D, w))
                          for w in range(n)], self.device)
+
+    def _d_forward(self, d, x: torch.Tensor, seed: int, step: int, path: Tuple[int, ...],
+                   masks: Optional[Masks]) -> torch.Tensor:
+        """D(x) in train mode.  A discriminator with dropout gets the keep
+        masks injected under ``path``, or the DROPOUT lane's generator
+        re-seeded at (step, *path)."""
+        if not getattr(d, "uses_dropout", False):
+            return d(x)
+        if masks is not None:
+            return d(x, masks[path])
+        return d(x, prng.reseed(self._dropgen, seed, prng.DROPOUT, step, *path))
+
+    def _real_batches(self, data: torch.Tensor, idx: torch.Tensor) -> Iterator[torch.Tensor]:
+        """A chunk's real batches, (N, b, C, H, W) a round, from (T, N, b)
+        indices: gathered in as few sampling launches as keep each launch's
+        output within ``GATHER_CAP_BYTES`` (the shards are read-only during
+        a chunk, so this equals one gather per round)."""
+        per_round = idx[0].numel() * data[0, 0].numel() * 4
+        span = max(1, GATHER_CAP_BYTES // per_round)
+        for s in range(0, idx.shape[0], span):
+            yield from sample_normalize(data, idx[s:s + span])
 
     def put_indices(self, idx: np.ndarray, shard_size: int) -> torch.Tensor:
         """Validate sampler indices on the host, then copy them to the device."""
@@ -161,24 +207,30 @@ class MDGANEngine(EngineBase):
         return self._latents(st.step, st.seed, self.k * self.cfg.batch_size)
 
     def step(self, st: MDGANState, data: torch.Tensor, idx: torch.Tensor,
-             z: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+             z: Optional[torch.Tensor] = None,
+             masks: Optional[Masks] = None) -> Dict[str, torch.Tensor]:
         """One round, updating ``st`` in place.
 
         data: (N, S, H, W, C) uint8 on the device; idx: (N, b) int32 on the
-        device; z: optional (k*b, z_dim) latents (tests inject JAX's).
+        device; z: optional (k*b, z_dim) latents; masks: optional dropout
+        keep masks by key path, (l, w, half) for the D step and
+        (local_epochs, w) for the feedback (tests inject JAX's).
         Returns device tensors: ``mean_d_loss`` (N,), ``g_feedback_loss``
         (N,), ``feedback_norm`` () and ``x_eval`` (k*b, C, H, W), the images
         of the pre-update generator.
         """
-        return self._round(st, sample_normalize(data, idx), z)
+        return self._round(st, sample_normalize(data, idx), z, masks)
 
-    def _round(self, st: MDGANState, real: torch.Tensor,
-               z: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def _round(self, st: MDGANState, real: torch.Tensor, z: Optional[torch.Tensor],
+               masks: Optional[Masks] = None) -> Dict[str, torch.Tensor]:
         """The round's body on its real batch ``real``, (N, b, C, H, W) float32."""
         cfg, n, k, b = self.cfg, self.n, self.k, self.cfg.batch_size
         if z is None:
             z = self.latents(st)
         g_net, d_net = st.g.modules[0], st.d.modules
+
+        def d_fwd(w, x, *path):
+            return self._d_forward(d_net[w], x, st.seed, st.step, path, masks)
 
         # (1) generate k*b fakes in one forward; the graph waits for (5)
         with self._autocast():
@@ -189,11 +241,12 @@ class MDGANEngine(EngineBase):
         # (2) fake batches per worker, (3) real batches and local D steps
         x_d = x_k[self._d_assign]
         d_loss_sum = torch.zeros(n, device=self.device)
-        for _ in range(cfg.local_epochs):
+        for l in range(cfg.local_epochs):
             st.d.zero_grad()
             with self._autocast():
-                loss = torch.stack([losses.d_loss(d(real[w]), d(x_d[w]))
-                                    for w, d in enumerate(d_net)])
+                loss = torch.stack([losses.d_loss(d_fwd(w, real[w], l, w, 0),
+                                                  d_fwd(w, x_d[w], l, w, 1))
+                                    for w in range(n)])
             loss.sum().backward()
             st.d.adam_step(cfg.discriminator_opt)
             d_loss_sum += loss.detach()
@@ -202,8 +255,8 @@ class MDGANEngine(EngineBase):
         # (4) feedback through the updated discriminators
         x_g = x_k[self._g_assign].requires_grad_(True)
         with self._autocast():
-            g_losses = torch.stack([losses.g_loss(d(x_g[w]))
-                                    for w, d in enumerate(d_net)])
+            g_losses = torch.stack([losses.g_loss(d_fwd(w, x_g[w], cfg.local_epochs, w))
+                                    for w in range(n)])
         (feedback,) = torch.autograd.grad(g_losses.sum(), x_g)
         fb_sq = feedback.square().sum()
 
@@ -226,16 +279,16 @@ class MDGANEngine(EngineBase):
         (the analogue of ``chunk_fn``): metrics stacked on a leading round
         axis, except ``x_eval``, which is the last round's.
 
-        The chunk's real batches are gathered in one sampling launch,
-        (T, N, b, C, H, W): the shards are read-only during a chunk, so this
-        equals a gather per round.  z: optional (T, k*b, z_dim) latents.
+        The chunk's real batches come from :meth:`_real_batches`: one
+        sampling launch a chunk unless the chunk's output passes
+        ``GATHER_CAP_BYTES``.  z: optional (T, k*b, z_dim) latents.
         """
         if z is not None and z.shape[0] != num_rounds:
             raise ValueError(f"z holds {z.shape[0]} rounds of latents, want {num_rounds}")
         idx = self.put_indices(sampler.next_chunk(num_rounds), data.shape[1])
-        real = sample_normalize(data, idx)
         out: List[Dict[str, torch.Tensor]] = [
-            self._round(st, real[t], None if z is None else z[t]) for t in range(num_rounds)]
+            self._round(st, real, None if z is None else z[t])
+            for t, real in enumerate(self._real_batches(data, idx))]
         stacked = {key: torch.stack([m[key] for m in out])
                    for key in ("mean_d_loss", "g_feedback_loss", "feedback_norm")}
         stacked["x_eval"] = out[-1]["x_eval"]

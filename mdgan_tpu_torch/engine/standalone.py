@@ -1,4 +1,4 @@
-"""The single-device DCGAN baseline (``--mode standalone``).
+"""The single-device GAN baseline (``--mode standalone``).
 
 Port of ``mdgan_tpu/engine/standalone.py:33-163``.  Per round (``_step``,
 ``:64-124``):
@@ -15,8 +15,11 @@ Port of ``mdgan_tpu/engine/standalone.py:33-163``.  Per round (``_step``,
     too (``:89-90``), and G's statistics come from its forward.
 
 D and G are each a :class:`NetState` with n=1: one Adam launch per net per
-local epoch.  A chunk's real batches are gathered in one sampling launch
-(N=1).
+local epoch.  A chunk's real batches are gathered as the MD-GAN engine
+gathers them (N=1): one sampling launch a chunk unless its output passes
+``GATHER_CAP_BYTES``.  A discriminator with dropout keys its masks as the
+JAX round splits its dropout key (``:98-99``): local epoch i's D step by
+(step, i, 0, half), its G step's D forward by (step, i, 1).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from mdgan_tpu_torch.engine.mdgan import EngineBase
+from mdgan_tpu_torch.engine.mdgan import EngineBase, Masks
 from mdgan_tpu_torch.engine.state import StandaloneState
 from mdgan_tpu_torch.ops import losses
 from mdgan_tpu_torch.ops.sampling import sample_normalize
@@ -52,13 +55,16 @@ class StandaloneEngine(EngineBase):
         return self._latents(st.step, st.seed, self.cfg.batch_size)
 
     def step(self, st: StandaloneState, data: torch.Tensor, idx: torch.Tensor,
-             z: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+             z: Optional[torch.Tensor] = None,
+             masks: Optional[Masks] = None) -> Dict[str, torch.Tensor]:
         """One round, updating ``st`` in place.  data: (1, S, H, W, C) uint8;
-        idx: (1, b) int32, both on the device; z: optional (b, z_dim)."""
-        return self._round(st, sample_normalize(data, idx)[0], z)
+        idx: (1, b) int32, both on the device; z: optional (b, z_dim);
+        masks: optional dropout keep masks by key path, (i, 0, half) and
+        (i, 1) (tests inject JAX's)."""
+        return self._round(st, sample_normalize(data, idx)[0], z, masks)
 
-    def _round(self, st: StandaloneState, real: torch.Tensor,
-               z: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def _round(self, st: StandaloneState, real: torch.Tensor, z: Optional[torch.Tensor],
+               masks: Optional[Masks] = None) -> Dict[str, torch.Tensor]:
         """The round's body on its real batch ``real``, (b, C, H, W) float32."""
         cfg = self.cfg
         if z is None:
@@ -66,23 +72,26 @@ class StandaloneEngine(EngineBase):
         g_net, d_net = st.g.modules[0], st.d.modules[0]
         g_params = list(g_net.parameters())
 
+        def d_fwd(x, *path):
+            return self._d_forward(d_net, x, st.seed, st.step, path, masks)
+
         # (1) the round's fake batch; this forward's G statistics are dropped
         fake0 = self.generate(st.g, z)
 
         d_sum = torch.zeros((), device=self.device)
         g_sum = torch.zeros((), device=self.device)
-        for _ in range(cfg.local_epochs):
+        for i in range(cfg.local_epochs):
             # (2) D step on (real, fake0)
             st.d.zero_grad()
             with self._autocast():
-                d_loss = losses.d_loss(d_net(real), d_net(fake0))
+                d_loss = losses.d_loss(d_fwd(real, i, 0, 0), d_fwd(fake0, i, 0, 1))
             d_loss.backward()
             st.d.adam_step(cfg.discriminator_opt)
             # (3) G step against the updated D; gradients land in G's arena
             # only, so D's arena holds nothing the next D step would add to
             st.g.zero_grad()
             with self._autocast():
-                g_loss = losses.g_loss(d_net(g_net(z)))
+                g_loss = losses.g_loss(d_fwd(g_net(z), i, 1))
             g_loss.backward(inputs=g_params)
             st.g.adam_step(cfg.generator_opt)
             d_sum += d_loss.detach()
@@ -98,14 +107,15 @@ class StandaloneEngine(EngineBase):
         (a ``ShardSampler`` over one shard), the analogue of ``chunk_fn``:
         ``mean_d_loss`` and ``mean_g_loss`` (T,), ``x_eval`` the last
         round's fake batch, and ``idx`` the chunk's host indices (T, 1, b).
-        The chunk's real batches are gathered in one sampling launch.
+        The chunk's real batches come from :meth:`_real_batches`.
         z: optional (T, b, z_dim) latents."""
         if z is not None and z.shape[0] != num_rounds:
             raise ValueError(f"z holds {z.shape[0]} rounds of latents, want {num_rounds}")
         idx = sampler.next_chunk(num_rounds)
-        real = sample_normalize(data, self.put_indices(idx, data.shape[1]))
+        reals = self._real_batches(data, self.put_indices(idx, data.shape[1]))
         out: List[Dict[str, torch.Tensor]] = [
-            self._round(st, real[t, 0], None if z is None else z[t]) for t in range(num_rounds)]
+            self._round(st, real[0], None if z is None else z[t])
+            for t, real in enumerate(reals)]
         stacked = {key: torch.stack([m[key] for m in out])
                    for key in ("mean_d_loss", "mean_g_loss")}
         stacked["x_eval"] = out[-1]["x_eval"]

@@ -7,9 +7,18 @@ A copy, not an import, of the layout rules of
   * flax ``ConvTranspose`` (kh, kw, I, O)  ->  ``nn.ConvTranspose2d`` (I, O, kh, kw),
     spatially flipped first (``lax.conv_transpose`` does not flip the kernel,
     torch's gradient-of-conv definition does)
+  * flax ``Dense``         (I, O)          ->  ``nn.Linear``-style    (O, I)
   * BatchNorm ``scale``/``bias`` + batch_stats ``mean``/``var``  ->
     ``weight``/``bias`` + ``running_mean``/``running_var``.  The port's
     BatchNorm keeps flax's biased variance, so values copy verbatim.
+  * StyleGAN2's 4x4 ``const`` (H, W, C) -> (C, H, W); its 0-d noise gains
+    copy as 0-d.
+
+Every model family has one map per role (:func:`role_of`): DCGAN-32
+(``generator``/``discriminator``), DCGAN-64, the MLP pair and StyleGAN2,
+whose map follows the module's resolutions and mapping depth.  Networks
+without BatchNorm (MLP, StyleGAN2) have no ``stat`` entries: their stats
+trees are empty.
 
 Trees are nested dicts of numpy arrays, or the flat ``params/...`` and
 ``batch_stats/...`` keys of a weights npz (``utils/checkpoint.py:117-137``).
@@ -22,14 +31,16 @@ port's ``metrics/inception.py`` (the parity tests use it).
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Tuple
+import functools
+from typing import Dict, Hashable, List, Mapping, Tuple
 
 import numpy as np
 import torch
 
-from mdgan_tpu_torch.models.dcgan32 import DCGANDiscriminator32, DCGANGenerator32
+from mdgan_tpu_torch.models import dcgan32, dcgan64, mlp_gan, stylegan2
 
-# (port state-dict key, flax path, kind); kind in conv | convt | vec | stat
+# (port state-dict key, flax path, kind);
+# kind in conv | convt | dense | const | scalar | vec | stat
 _Entry = Tuple[str, Tuple[str, ...], str]
 
 
@@ -42,29 +53,110 @@ def _bn(port: str, flax: Tuple[str, ...]) -> List[_Entry]:
     ]
 
 
-MAPS: Dict[str, List[_Entry]] = {
-    "generator": [
-        e for i in range(3) for e in (
+def _dcgan_g(stages: int) -> List[_Entry]:
+    return [
+        e for i in range(stages) for e in (
             [(f"block{i}.conv.weight",
               (f"ConvTransposeBlock_{i}", "ConvTranspose_0", "kernel"), "convt")]
             + _bn(f"block{i}.bn", (f"ConvTransposeBlock_{i}", "BatchNorm_0")))
-    ] + [("out.weight", ("ConvTranspose_0", "kernel"), "convt")],
-    "discriminator": [
-        ("block0.conv.weight", ("ConvBlock_0", "Conv_0", "kernel"), "conv"),
-    ] + [
-        e for i in (1, 2) for e in (
-            [(f"block{i}.conv.weight", (f"ConvBlock_{i}", "Conv_0", "kernel"), "conv")]
-            + _bn(f"block{i}.bn", (f"ConvBlock_{i}", "BatchNorm_0")))
-    ] + [("out.weight", ("Conv_0", "kernel"), "conv")],
+    ] + [("out.weight", ("ConvTranspose_0", "kernel"), "convt")]
+
+
+def _dcgan_d(stages: int, biased=()) -> List[_Entry]:
+    out = [("block0.conv.weight", ("ConvBlock_0", "Conv_0", "kernel"), "conv")]
+    for i in range(1, stages):
+        out.append((f"block{i}.conv.weight", (f"ConvBlock_{i}", "Conv_0", "kernel"), "conv"))
+        if i in biased:
+            out.append((f"block{i}.conv.bias", (f"ConvBlock_{i}", "Conv_0", "bias"), "vec"))
+        out += _bn(f"block{i}.bn", (f"ConvBlock_{i}", "BatchNorm_0"))
+    return out + [("out.weight", ("Conv_0", "kernel"), "conv")]
+
+
+def _dense(port: str, flax: Tuple[str, ...]) -> List[_Entry]:
+    return [(f"{port}.weight", flax + ("kernel",), "dense"),
+            (f"{port}.bias", flax + ("bias",), "vec")]
+
+
+def _mlp(n_hidden: int) -> List[_Entry]:
+    return [e for i in range(n_hidden) for e in _dense(f"hidden.{i}", (f"Dense_{i}",))] \
+        + _dense("out", (f"Dense_{n_hidden}",))
+
+
+MAPS: Dict[str, List[_Entry]] = {
+    "generator": _dcgan_g(3),                     # DCGAN-32
+    "discriminator": _dcgan_d(3),
+    "dcgan64_generator": _dcgan_g(4),
+    "dcgan64_discriminator": _dcgan_d(4, biased=(1, 2)),
+    "mlp_generator": _mlp(len(mlp_gan.G_DIMS)),
+    "mlp_discriminator": _mlp(len(mlp_gan.D_DIMS)),
 }
 
 
-def role_of(module: torch.nn.Module) -> str:
-    if isinstance(module, DCGANGenerator32):
-        return "generator"
-    if isinstance(module, DCGANDiscriminator32):
-        return "discriminator"
+def _modconv(port: str, flax: Tuple[str, ...]) -> List[_Entry]:
+    return [(f"{port}.weight", flax + ("kernel",), "conv")] + _dense(f"{port}.mod",
+                                                                     flax + ("mod",))
+
+
+@functools.lru_cache(maxsize=None)
+def _stylegan2_g(resolutions: Tuple[int, ...], map_layers: int) -> List[_Entry]:
+    out = [e for i in range(map_layers)
+           for e in _dense(f"mapping.layers.{i}", ("MappingNetwork_0", f"EqualDense_{i}"))]
+    out.append(("const", ("const",), "const"))
+    for res in resolutions:
+        blk = f"b{res}"
+        for i in range(2):
+            out += _modconv(f"{blk}.conv{i}", (blk, f"conv{i}"))
+            out += [(f"{blk}.noise_gain{i}", (blk, f"noise_gain{i}"), "scalar"),
+                    (f"{blk}.bias{i}", (blk, f"bias{i}"), "vec")]
+        out += _modconv(f"trgb{res}", (f"trgb{res}",))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _stylegan2_d(resolutions: Tuple[int, ...]) -> List[_Entry]:
+    def conv(port, flax, bias=True):
+        return [(f"{port}.weight", flax + ("kernel",), "conv")] + (
+            [(f"{port}.bias", flax + ("bias",), "vec")] if bias else [])
+
+    out = conv("from_rgb", ("Conv_0",))
+    for res in resolutions:
+        blk = f"b{res}"
+        out += conv(f"{blk}.skip", (blk, "Conv_0"), bias=False)
+        out += conv(f"{blk}.conv1", (blk, "Conv_1")) + conv(f"{blk}.conv2", (blk, "Conv_2"))
+    return (out + conv("conv_out", ("Conv_1",)) + _dense("fc", ("EqualDense_0",))
+            + _dense("out", ("EqualDense_1",)))
+
+
+_FIXED_ROLES = {
+    dcgan32.DCGANGenerator32: "generator",
+    dcgan32.DCGANDiscriminator32: "discriminator",
+    dcgan64.DCGANGenerator64: "dcgan64_generator",
+    dcgan64.DCGANDiscriminator64: "dcgan64_discriminator",
+    mlp_gan.MLPGenerator: "mlp_generator",
+    mlp_gan.MLPDiscriminator: "mlp_discriminator",
+}
+
+
+def role_of(module: torch.nn.Module) -> Hashable:
+    """The key of ``module``'s weight map: a name for the fixed-shape
+    families, a tuple with the resolutions (and the mapping depth) for
+    StyleGAN2."""
+    if type(module) in _FIXED_ROLES:
+        return _FIXED_ROLES[type(module)]
+    if isinstance(module, stylegan2.StyleGAN2Generator):
+        return ("stylegan2_generator", tuple(module.resolutions), len(module.mapping.layers))
+    if isinstance(module, stylegan2.StyleGAN2Discriminator):
+        return ("stylegan2_discriminator", tuple(module.resolutions))
     raise TypeError(f"no JAX weight map for {type(module).__name__}")
+
+
+def entries(role: Hashable) -> List[_Entry]:
+    """The weight map of ``role``, a key from :func:`role_of`."""
+    if isinstance(role, str):
+        return MAPS[role]
+    kind, *args = role
+    build = {"stylegan2_generator": _stylegan2_g, "stylegan2_discriminator": _stylegan2_d}
+    return build[kind](*args)
 
 
 def split_npz(flat: Mapping[str, np.ndarray]) -> Tuple[Dict, Dict]:
@@ -110,6 +202,10 @@ def _to_port(a: np.ndarray, kind: str) -> np.ndarray:
         return a.transpose(3, 2, 0, 1)
     if kind == "convt":
         return a[::-1, ::-1].transpose(2, 3, 0, 1)
+    if kind == "dense":
+        return a.T
+    if kind == "const":
+        return a.transpose(2, 0, 1)
     return a
 
 
@@ -118,37 +214,42 @@ def _to_jax(a: np.ndarray, kind: str) -> np.ndarray:
         return a.transpose(2, 3, 1, 0)
     if kind == "convt":
         return a.transpose(2, 3, 0, 1)[::-1, ::-1]
+    if kind == "dense":
+        return a.T
+    if kind == "const":
+        return a.transpose(1, 2, 0)
     return a
 
 
-def params_to_port(tree: Mapping, role: str) -> Dict[str, np.ndarray]:
+def params_to_port(tree: Mapping, role) -> Dict[str, np.ndarray]:
     """A params-shaped tree (params, or an Adam moment) -> port parameter
     names and layouts."""
     return {name: np.array(_to_port(_get(tree, path), kind), np.float32, order="C")
-            for name, path, kind in MAPS[role] if kind != "stat"}
+            for name, path, kind in entries(role) if kind != "stat"}
 
 
-def stats_to_port(stats: Mapping, role: str) -> Dict[str, np.ndarray]:
+def stats_to_port(stats: Mapping, role) -> Dict[str, np.ndarray]:
     return {name: np.array(_get(stats, path), np.float32)
-            for name, path, kind in MAPS[role] if kind == "stat"}
+            for name, path, kind in entries(role) if kind == "stat"}
 
 
-def params_to_jax(named: Mapping[str, np.ndarray], role: str) -> Dict:
+def params_to_jax(named: Mapping[str, np.ndarray], role) -> Dict:
     """Port parameter names -> a nested flax params-shaped tree."""
     out: Dict = {}
-    for name, path, kind in MAPS[role]:
+    for name, path, kind in entries(role):
         if kind == "stat":
             continue
         node = out
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = np.ascontiguousarray(_to_jax(np.asarray(named[name]), kind))
+        # np.ascontiguousarray would make a 0-d leaf 1-d
+        node[path[-1]] = np.array(_to_jax(np.asarray(named[name]), kind), order="C")
     return out
 
 
-def stats_to_jax(named: Mapping[str, np.ndarray], role: str) -> Dict:
+def stats_to_jax(named: Mapping[str, np.ndarray], role) -> Dict:
     out: Dict = {}
-    for name, path, kind in MAPS[role]:
+    for name, path, kind in entries(role):
         if kind != "stat":
             continue
         node = out

@@ -4,7 +4,10 @@ Port of ``mdgan_tpu/models/layers.py:22-149`` in NCHW with OIHW weights:
 
 * DCGAN init: conv and conv-transpose weights ~ N(0, 0.02), BatchNorm scale
   ~ N(1, 0.02), bias 0 (``layers.py:33-40``), drawn from an explicit
-  ``torch.Generator``.
+  ``torch.Generator``.  A biased conv (the CelebA quirk) keeps torch's
+  default bias init U(+-1/sqrt(in*k*k)) (``layers.py:88-101``).
+* torch's default Linear init, U(+-1/sqrt(fan_in)) for weight and bias
+  (``layers.py:43-63``), which the reference's MLP keeps.
 * :class:`BatchNorm2d` follows flax's ``nn.BatchNorm`` rather than torch's:
   eps 1e-5, running averages with torch momentum 0.1 (flax's 0.9), the
   variance as ``max(E[x^2] - E[x]^2, 0)`` (flax's fast variance), and a
@@ -56,13 +59,14 @@ class BatchNorm2d(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """Conv (k4 s2 p1, no bias) + optional BatchNorm + LeakyReLU(0.2): one
-    DCGAN discriminator stage (``layers.py:68-110``)."""
+    """Conv (k4 s2 p1, no bias unless ``use_bias``) + optional BatchNorm +
+    LeakyReLU(``slope``): one DCGAN discriminator stage
+    (``layers.py:68-110``)."""
 
     def __init__(self, in_ch: int, out_ch: int, use_bn: bool = True,
-                 slope: float = 0.2):
+                 slope: float = 0.2, use_bias: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, out_ch, 4, 2, 1, bias=False)
+        self.conv = nn.Conv2d(in_ch, out_ch, 4, 2, 1, bias=use_bias)
         self.bn = BatchNorm2d(out_ch) if use_bn else None
         self.slope = slope
 
@@ -87,6 +91,10 @@ class ConvTransposeBlock(nn.Module):
         return F.relu(self.bn(self.conv(x)))
 
 
+def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator) -> None:
+    t.copy_((torch.rand(t.shape, generator=gen) * 2.0 - 1.0) * bound)
+
+
 @torch.no_grad()
 def dcgan_init_(module: nn.Module, gen: torch.Generator) -> nn.Module:
     """DCGAN init in place, from ``gen``, in ``named_modules`` order."""
@@ -94,8 +102,22 @@ def dcgan_init_(module: nn.Module, gen: torch.Generator) -> nn.Module:
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * DCGAN_W_STD)
             if m.bias is not None:
-                m.bias.zero_()
+                fan_in = m.weight.shape[1] * m.weight.shape[2] * m.weight.shape[3]
+                _uniform_(m.bias, fan_in ** -0.5, gen)
         elif isinstance(m, BatchNorm2d):
             m.weight.copy_(1.0 + torch.randn(m.weight.shape, generator=gen) * DCGAN_W_STD)
             m.bias.zero_()
+    return module
+
+
+@torch.no_grad()
+def torch_linear_init_(module: nn.Module, gen: torch.Generator) -> nn.Module:
+    """torch's default Linear init in place, from ``gen``: weight and bias
+    ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (``layers.py:43-63``)."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            bound = m.in_features ** -0.5
+            _uniform_(m.weight, bound, gen)
+            if m.bias is not None:
+                _uniform_(m.bias, bound, gen)
     return module

@@ -468,7 +468,7 @@ def test_cli_chunk_size_changes_no_metric(capsys, monkeypatch, tmp_path, stub_in
 
 @pytest.mark.parametrize("flag", [["--swap_impl", "ppermute"], ["--straggler_rate", "0.1"],
                                   ["--moment_dtype", "bfloat16"], ["--num_replicas", "2"],
-                                  ["--dataset", "MNIST"], ["--download"]])
+                                  ["--num_tensor", "2"], ["--download"]])
 def test_cli_waiting_features_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--epochs", "1", "--device", "cpu", "--num_workers", "2",

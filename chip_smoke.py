@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line with its seconds:
+(``chip_smoke.py --rank-program ...`` is one rank of the ``distributed``
+phase, started by the script itself.)  Phases, each printing one JSON line
+with its seconds:
 
   env      torch/CUDA versions and ``nvidia-smi`` name and power limit
   build    the one ``nvcc`` build of ``mdgan_tpu_torch/csrc/*.cu``, timed
@@ -11,7 +13,9 @@ Phases, each printing one JSON line with its seconds:
            PyTorch version on the card (Adam: the G arena, the 8-D arena of
            the MD-GAN round and the 1-D arena of the standalone round, 3
            steps, rtol 1e-6, for DCGAN-32 and each other family at full
-           width; sampling: bit-equal on the full CIFAR-10 shard
+           width; the bfloat16-moment Adam on the same twelve arenas,
+           bit-equal, against its 20 B/element bound; sampling: bit-equal on
+           the full CIFAR-10 shard
            stack at the MD-GAN chunk T=100 and at T=1, on the standalone
            run's one-shard stack of 50,000 rows at T=100 and T=1, and on
            64x64x3, 128x128x3, 5x5x3, 2x2x3 and 3x3x16 rows, an unaligned
@@ -33,9 +37,19 @@ Phases, each printing one JSON line with its seconds:
   mdgan    the CLI's ``main`` at the headline config (CIFAR10, N=8, b=10,
            full width), its files in a temporary directory: 20 rounds with
            --swap_interval 10 in float32 with the default --chunk_size, then
-           20 in bfloat16 with --chunk_size 4; losses finite, FID/IS finite
-           at rounds 0, 10 and 19, launch counters read from the run: 2 Adam
-           launches a round and one sampling launch a chunk
+           20 in bfloat16 with --chunk_size 4, then 20 in float32 with
+           --moment_dtype bfloat16 --straggler_rate 0.3; losses finite,
+           FID/IS finite at rounds 0, 10 and 19, launch counters read from
+           the run: 2 Adam launches a round (the bf16-moment kernel's in the
+           third run) and one sampling launch a chunk; the third run's
+           server CSV has ``n_feedbacks`` in [1, 8] on every row
+  distributed  ``python -m torch.distributed.run`` of the same CLI on W
+           local ranks over NCCL (W the card count, capped at N=8): the
+           headline config in float32 for 10 rounds with a swap at round 5;
+           at W=1 its checkpoint, exports, CSV losses and printed metrics
+           bit-identical to the single-process run under deterministic
+           algorithms; every rank's launch counts and its warm-round host
+           time against the single-process engine's; prints W
   standalone  the CLI in --mode standalone (CIFAR10, b=10, full width, 30
            rounds, float32): 2 Adam launches a local epoch and one sampling
            launch a chunk, counted from the run; then two narrow standalone
@@ -81,6 +95,11 @@ from pathlib import Path
 
 ADAM_BYTES_PER_ELEM = 28    # read p, g, mu, nu; write p, mu, nu (float32)
 ADAM_OPS_PER_ELEM = 13      # see csrc/adam.cu
+# the bfloat16-moment kernel: read p, g (4 B each) and mu, nu (2 B each), write
+# p, mu, nu: 20 B; its 13 operations plus the bf16 roundings of b1*mu and
+# b2*nu and of the two stored moments
+ADAM_BF16M_BYTES_PER_ELEM = 20
+ADAM_BF16M_OPS_PER_ELEM = 17
 L2_BYTES = 50 * 2 ** 20     # H100 SXM L2 cache
 # the most float32 bytes one sampling launch of a chunk writes: the engines'
 # GATHER_CAP_BYTES, restated here so the expected launch counts do not come
@@ -113,11 +132,14 @@ def nvidia_smi() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def adam_arena(gen, n, rec, name):
+def adam_arena(gen, n, rec, name, bf16_moments=False):
     """Adam on an arena of ``n`` elements: 3 steps of the kernel against the
     plain version (rtol 1e-6; the worst errors go into ``rec``), then
     kernel, plain and fused-torch device times, the inputs rotated out of
-    the L2."""
+    the L2.  ``bf16_moments``: the bfloat16-moment kernel, which must be
+    bit-equal to its plain version (both round at the same points with
+    round-to-nearest-even), and has no library call: fused torch Adam keeps
+    its moments in the parameters' dtype."""
     import torch
 
     from mdgan_tpu_torch.core.timing import bound_ms, time_ms
@@ -125,49 +147,61 @@ def adam_arena(gen, n, rec, name):
 
     dev = torch.device("cuda")
     lr, b1, b2, eps = 2e-4, 0.0, 0.999, 1e-8
+    plain = adam.adam_plain_bf16m if bf16_moments else adam.adam_plain
 
     def rand(scale, positive=False):
         t = torch.randn(n, generator=gen, device=dev) * scale
         return t.abs() if positive else t
     start = [rand(0.02), rand(1e-2), rand(1e-3), rand(1e-5, positive=True)]
+    if bf16_moments:
+        start[2:] = [t.to(torch.bfloat16) for t in start[2:]]
     ker = [t.clone() for t in start]
     ref = [t.clone() for t in start]
     for count in (1, 2, 3):
         lr_c1, inv_c2 = adam.bias_scalars(lr, b1, b2, count)
         adam.adam_update(ker[0], ker[1], ker[2], ker[3], lr_c1, inv_c2, b1, b2, eps)
-        adam.adam_plain(ref[0], ref[1], ref[2], ref[3], lr_c1, inv_c2, b1, b2, eps)
+        plain(ref[0], ref[1], ref[2], ref[3], lr_c1, inv_c2, b1, b2, eps)
     torch.cuda.synchronize()
     for i in (0, 2, 3):  # p, mu, nu
-        err = (ker[i] - ref[i]).abs()
-        rel = float((err / (1e-30 + ref[i].abs())).max())
-        require(bool((err <= 1e-9 + 1e-6 * ref[i].abs()).all()),
-                f"adam kernel vs plain on {name}: max rel err {rel}")
+        err = (ker[i].float() - ref[i].float()).abs()
+        rel = float((err / (1e-30 + ref[i].float().abs())).max())
+        if bf16_moments:
+            require(torch.equal(ker[i], ref[i]),
+                    f"bf16-moment adam kernel vs plain on {name}: max rel err {rel}")
+        else:
+            require(bool((err <= 1e-9 + 1e-6 * ref[i].abs()).all()),
+                    f"adam kernel vs plain on {name}: max rel err {rel}")
         rec["max_abs_err"] = max(rec["max_abs_err"], float(err.max()))
         rec["max_rel_err"] = max(rec["max_rel_err"], rel)
 
     lr_c1, inv_c2 = adam.bias_scalars(lr, b1, b2, 4)
+    per_elem = ADAM_BF16M_BYTES_PER_ELEM if bf16_moments else ADAM_BYTES_PER_ELEM
     # consecutive timed calls rotate over enough copies of the arenas
     # that each finds its inputs outside the L2, as a launch inside a
     # round does (the 1-D arena alone would stay L2-resident)
-    copies = max(1, math.ceil(2 * L2_BYTES / (16 * n)))
+    resident = 12 if bf16_moments else 16  # bytes an element holds in p, g, mu, nu
+    copies = max(1, math.ceil(2 * L2_BYTES / (resident * n)))
     sets = [ker] + [[t.clone() for t in ker] for _ in range(copies - 1)]
     refs = [ref] + [[t.clone() for t in ref] for _ in range(copies - 1)]
-    opts = []
-    for _ in range(copies):
-        param = torch.nn.Parameter(start[0].clone())
-        param.grad = start[1].clone()
-        opts.append(torch.optim.Adam([param], lr=lr, betas=(b1, b2), eps=eps, fused=True))
     it = itertools.count()
     k_t = time_ms(lambda: adam.adam_update(*sets[next(it) % copies], lr_c1, inv_c2,
                                            b1, b2, eps), 50)
-    p_t = time_ms(lambda: adam.adam_plain(*refs[next(it) % copies], lr_c1, inv_c2,
-                                          b1, b2, eps), 20)
-    l_t = time_ms(lambda: opts[next(it) % copies].step(), 50)
-    b_ms, b_by = bound_ms(ADAM_BYTES_PER_ELEM * n, ADAM_OPS_PER_ELEM * n)
-    del start, ker, ref, sets, refs, opts
+    p_t = time_ms(lambda: plain(*refs[next(it) % copies], lr_c1, inv_c2, b1, b2, eps), 20)
+    library_ms = None
+    if not bf16_moments:
+        opts = []
+        for _ in range(copies):
+            param = torch.nn.Parameter(start[0].clone())
+            param.grad = start[1].clone()
+            opts.append(torch.optim.Adam([param], lr=lr, betas=(b1, b2), eps=eps, fused=True))
+        library_ms = time_ms(lambda: opts[next(it) % copies].step(), 50)["ms"]
+        del opts
+    b_ms, b_by = bound_ms(per_elem * n,
+                          (ADAM_BF16M_OPS_PER_ELEM if bf16_moments else ADAM_OPS_PER_ELEM) * n)
+    del start, ker, ref, sets, refs
     torch.cuda.empty_cache()
-    return {"elements": n, "bytes": ADAM_BYTES_PER_ELEM * n, "ms": k_t["ms"],
-            "plain_ms": p_t["ms"], "library_ms": l_t["ms"], "bound_ms": b_ms, "bound_by": b_by,
+    return {"elements": n, "bytes": per_elem * n, "ms": k_t["ms"],
+            "plain_ms": p_t["ms"], "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
             "share_of_bound": b_ms / k_t["ms"], "copies": copies,
             "host_us_per_call": k_t["host_us_per_call"]}
 
@@ -176,14 +210,17 @@ def _sum_arenas(*arenas):
     """A path's Adam per round (per local epoch in standalone): one launch on
     each of its arenas."""
     out = {key: sum(a[key] for a in arenas)
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes")}
+           for key in ("ms", "plain_ms", "bound_ms", "bytes")}
+    libs = [a["library_ms"] for a in arenas]
+    out["library_ms"] = None if None in libs else sum(libs)
     out["share_of_bound"] = out["bound_ms"] / out["ms"]
     return out
 
 
 def phase_kernels():
-    """Both kernels at the main path's shapes, and at each other family's,
-    against their plain versions."""
+    """The three kernels at the main path's shapes, and at each other
+    family's, against their plain versions: Adam with float32 moments and
+    with bfloat16 moments on the same arenas, and sampling."""
     import torch
 
     from mdgan_tpu_torch.core.registry import get as get_spec
@@ -197,25 +234,32 @@ def phase_kernels():
         return (sum(p.numel() for p in spec.make_generator().parameters()),
                 sum(p.numel() for p in spec.make_discriminator().parameters()))
 
-    adam_rec = {"max_abs_err": 0.0, "max_rel_err": 0.0, "arenas": {}, "families": {}}
-    # the MD-GAN round's arenas (G, 8 D) add up to the record's totals; the
-    # standalone round's single-D arena is checked and timed beside them
-    n_g, n_d1 = sizes("CIFAR10")
-    for name, n in (("G", n_g), ("D x8", 8 * n_d1), ("D x1", n_d1)):
-        adam_rec["arenas"][name] = adam_arena(gen, n, adam_rec, name)
-    g, d8, d1 = (adam_rec["arenas"][k] for k in ("G", "D x8", "D x1"))
-    main = _sum_arenas(g, d8)
-    adam_rec.update({k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",
-                                          "share_of_bound")}, bound_by=d8["bound_by"])
-    adam_rec["standalone"] = _sum_arenas(g, d1)  # one local epoch: one launch on G, one on D
-    for dataset in FAMILIES:
-        n_g, n_d1 = sizes(dataset)
-        arenas = {name: adam_arena(gen, n, adam_rec, f"{dataset} {name}")
-                  for name, n in (("G", n_g), ("D x8", 8 * n_d1), ("D x1", n_d1))}
-        adam_rec["families"][dataset] = {
-            "arenas": arenas, "mdgan": _sum_arenas(arenas["G"], arenas["D x8"]),
-            "standalone": _sum_arenas(arenas["G"], arenas["D x1"])}
-    return adam_rec, phase_sampling(gen)
+    recs = []
+    for bf16 in (False, True):
+        rec = {"max_abs_err": 0.0, "max_rel_err": 0.0, "arenas": {}, "families": {}}
+        # the MD-GAN round's arenas (G, 8 D) add up to the record's totals;
+        # the standalone round's single-D arena is checked and timed beside them
+        n_g, n_d1 = sizes("CIFAR10")
+        for name, n in (("G", n_g), ("D x8", 8 * n_d1), ("D x1", n_d1)):
+            rec["arenas"][name] = adam_arena(gen, n, rec, name, bf16)
+        g, d8, d1 = (rec["arenas"][k] for k in ("G", "D x8", "D x1"))
+        main = _sum_arenas(g, d8)
+        rec.update({k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",
+                                         "share_of_bound")}, bound_by=d8["bound_by"])
+        rec["standalone"] = _sum_arenas(g, d1)  # one local epoch: one launch on G, one on D
+        for dataset in FAMILIES:
+            n_g, n_d1 = sizes(dataset)
+            arenas = {name: adam_arena(gen, n, rec, f"{dataset} {name}", bf16)
+                      for name, n in (("G", n_g), ("D x8", 8 * n_d1), ("D x1", n_d1))}
+            rec["families"][dataset] = {
+                "arenas": arenas, "mdgan": _sum_arenas(arenas["G"], arenas["D x8"]),
+                "standalone": _sum_arenas(arenas["G"], arenas["D x1"])}
+        recs.append(rec)
+    recs[1]["library_ms_reason"] = ("no single PyTorch call keeps Adam's moments in "
+                                    "bfloat16 beside float32 parameters "
+                                    "(torch.optim.Adam(fused=True) keeps them in the "
+                                    "parameters' dtype)")
+    return recs[0], recs[1], phase_sampling(gen)
 
 
 def phase_sampling(gen):
@@ -561,17 +605,26 @@ def phase_standalone_round():
             "param_max_abs_diff": dp, "g_stats_max_abs_diff": stat_err}
 
 
-def run_main(argv):
+def run_main(argv, server_csv=False):
     """The CLI's main in-process, writing its files into a temporary
-    directory; returns its summary (last stdout line) and log lines."""
+    directory; returns its summary (last stdout line) and log lines, and
+    with ``server_csv`` the server CSV's rows."""
+    import csv
+
     from mdgan_tpu_torch.cli import train
 
     buf = io.StringIO()
     with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(buf):
         rc = train.main(argv + out_dirs(Path(tmp)))
+        rows = [list(csv.DictReader(io.StringIO(p.read_text()))) for p in
+                (Path(tmp) / "log_dir").glob("*.server.logs.csv")] if server_csv else None
     require(rc == 0, f"train.main returned {rc}")
     lines = buf.getvalue().strip().splitlines()
-    return json.loads(lines[-1]), [json.loads(ln) for ln in lines[:-1]]
+    out = json.loads(lines[-1]), [json.loads(ln) for ln in lines[:-1]]
+    if server_csv:
+        require(len(rows) == 1, f"{len(rows)} server CSVs")
+        return (*out, rows[0])
+    return out
 
 
 def out_dirs(root: Path):
@@ -599,37 +652,57 @@ def cli_chunks(rounds: int, swap_interval: int, log_interval: int, chunk: int,
 
 def phase_mdgan(rounds: int = 20):
     """The headline config through the CLI, float32 with the default chunk
-    size, then bfloat16 with chunks of 4: one sampling launch per chunk."""
+    size, then bfloat16 with chunks of 4: one sampling launch per chunk; then
+    float32 with bfloat16 Adam moments and the straggler policy at rate 0.3:
+    every Adam launch the bf16-moment kernel, and the server CSV's
+    ``n_feedbacks`` column in [1, 8]."""
     from mdgan_tpu_torch.ops import adam, sampling
 
     base = ["--mode", "mdgan", "--dataset", "CIFAR10", "--num_workers", "8",
             "--batch_size", "10", "--epochs", str(rounds), "--swap_interval", "10",
             "--log_interval", "10"]
-    adam.adam_update.launches = 0
+    adam.adam_update.launches = adam.adam_update.launches_bf16m = 0
     sampling.sample_normalize.launches = 0
-    runs, prev = {}, (0, 0)
-    for dtype, chunk in (("float32", 100), ("bfloat16", 4)):
-        summary, logs = run_main(base + ["--compute_dtype", dtype, "--chunk_size", str(chunk)])
-        now = (adam.adam_update.launches, sampling.sample_normalize.launches)
-        launched = (now[0] - prev[0], now[1] - prev[1])
+    runs, prev = {}, (0, 0, 0)
+    for name, extra, chunk in (
+            ("float32", ["--compute_dtype", "float32"], 100),
+            ("bfloat16", ["--compute_dtype", "bfloat16"], 4),
+            ("bf16_moments_straggler", ["--compute_dtype", "float32", "--moment_dtype",
+                                        "bfloat16", "--straggler_rate", "0.3"], 100)):
+        summary, logs, rows = run_main(base + extra + ["--chunk_size", str(chunk)],
+                                       server_csv=True)
+        now = (adam.adam_update.launches, adam.adam_update.launches_bf16m,
+               sampling.sample_normalize.launches)
+        launched = tuple(a - b for a, b in zip(now, prev))
         prev = now
         chunks = cli_chunks(rounds, 10, 10, chunk)
-        require(summary["all_finite"], f"{dtype}: non-finite metrics")
+        bf16m = name == "bf16_moments_straggler"
+        want = (0, 2 * rounds, len(chunks)) if bf16m else (2 * rounds, 0, len(chunks))
+        require(summary["all_finite"], f"{name}: non-finite metrics")
         require(summary["swaps"] == (rounds - 1) // 10,
-                f"{dtype}: {summary['swaps']} swaps, want {(rounds - 1) // 10}")
-        require(launched == (2 * rounds, len(chunks)),
-                f"{dtype}: launches adam={launched[0]} (want {2 * rounds}), "
-                f"sampling={launched[1]} (want {len(chunks)}, one per chunk {chunks})")
+                f"{name}: {summary['swaps']} swaps, want {(rounds - 1) // 10}")
+        require(launched == want,
+                f"{name}: launches adam f32/bf16-moment/sampling {launched}, want {want} "
+                f"(one sampling launch per chunk {chunks})")
         require([e["epoch"] for e in summary["evals"]] == [0, 10, rounds - 1]
                 and all(math.isfinite(e["fid"]) and math.isfinite(e["is"])
-                        for e in summary["evals"]), f"{dtype}: evals {summary['evals']}")
+                        for e in summary["evals"]), f"{name}: evals {summary['evals']}")
+        n_fb = [row.get("n_feedbacks") for row in rows]
+        if bf16m:
+            require(n_fb and all(v not in (None, "") and 1 <= int(v) <= 8 for v in n_fb),
+                    f"{name}: n_feedbacks column {n_fb}")
+        else:
+            require(all(v is None for v in n_fb), f"{name}: an n_feedbacks column at rate 0")
         r0, r1 = logs[-2], logs[-1]  # rounds 10 and 19: past the warm-up
         summary["steady_rounds_per_s"] = ((r1["round"] - r0["round"])
                                           / (r1["elapsed_s"] - r0["elapsed_s"]))
-        runs[dtype] = {**summary, "chunk_size": chunk, "chunks": chunks,
-                       "adam_launches": launched[0], "sampling_launches": launched[1],
-                       "log": logs}
-    return runs, {"adam": prev[0], "sampling": prev[1]}
+        runs[name] = {**summary, "chunk_size": chunk, "chunks": chunks,
+                      "adam_launches": launched[0], "adam_bf16m_launches": launched[1],
+                      "sampling_launches": launched[2], "log": logs,
+                      "n_feedbacks": [int(v) for v in n_fb] if bf16m else None}
+    counts = {name: {"adam": r["adam_launches"], "adam_bf16m": r["adam_bf16m_launches"],
+                     "sampling": r["sampling_launches"]} for name, r in runs.items()}
+    return runs, counts
 
 
 def phase_standalone(rounds: int = 30, local_epochs: int = 1):
@@ -952,7 +1025,7 @@ def phase_profile(rounds: int = 5):
     """Where a round's time goes at full width: CIFAR10 (DCGAN-32) MD-GAN
     with N=8 in float32 and bfloat16 and the standalone round in float32
     (20 timed rounds), then the same three for each other family on 8,000
-    examples (10 timed rounds, 3 profiled).  Adam and sampling launches a
+    examples (6 timed rounds, 2 profiled).  Adam and sampling launches a
     round are counted in the timed rounds."""
     from mdgan_tpu_torch.core.config import TrainConfig
     from mdgan_tpu_torch.core.registry import get as get_spec
@@ -964,7 +1037,7 @@ def phase_profile(rounds: int = 5):
 
     out = {}
     for dataset, max_examples, counts in (("CIFAR10", None, (10, 20, rounds)),
-                                          *((d, 8000, (3, 10, 3)) for d in FAMILIES)):
+                                          *((d, 8000, (2, 6, 2)) for d in FAMILIES)):
         spec = get_spec(dataset)
         data = spec.load("data", max_examples=max_examples)[0]
         shards_np, _ = shard_data(data, 8, iid=True, seed=0)
@@ -992,6 +1065,193 @@ def phase_profile(rounds: int = 5):
     return out
 
 
+def rank_program(argv) -> int:
+    """One rank of the ``distributed`` phase, started by
+    ``torch.distributed.run``: in the process group, the sharded round's
+    host time over warm rounds (the ``profile`` phase's measure); then, its
+    counters set to 0, the CLI's main under deterministic algorithms (as the
+    single-process run it is held to); this rank's launch counts and round
+    time go into ``<out>/rank_<rank>.json``."""
+    import torch
+
+    from mdgan_tpu_torch.cli import train
+    from mdgan_tpu_torch.core import distributed
+    from mdgan_tpu_torch.ops import adam, sampling
+
+    out, argv = Path(argv[0]), argv[1:]
+    distributed.maybe_initialize()
+    host_ms = _round_host_ms()
+    adam.adam_update.launches = adam.adam_update.launches_bf16m = 0
+    sampling.sample_normalize.launches = 0
+    torch.use_deterministic_algorithms(True)
+    rc = train.main(argv)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"rank_{os.environ['RANK']}.json").write_text(json.dumps(
+        {"launches": {"adam": adam.adam_update.launches,
+                      "adam_bf16m": adam.adam_update.launches_bf16m,
+                      "sampling": sampling.sample_normalize.launches},
+         "host_ms_per_round": host_ms}))
+    return rc
+
+
+def _round_host_ms(warm: int = 5, timed: int = 20) -> float:
+    """Host ms a round of the headline MD-GAN round (CIFAR10, N=8, b=10,
+    float32) over ``timed`` warm rounds ending in a synchronize, in this
+    process's rank layout."""
+    import torch
+
+    from mdgan_tpu_torch.core.config import TrainConfig
+    from mdgan_tpu_torch.core.registry import get as get_spec
+    from mdgan_tpu_torch.data.partitioner import shard_data
+    from mdgan_tpu_torch.data.sampler import ShardSampler
+    from mdgan_tpu_torch.engine.mdgan import MDGANEngine
+
+    spec = get_spec("CIFAR10")
+    shards_np, _ = shard_data(spec.load("data")[0], 8, iid=True, seed=0)
+    eng = MDGANEngine(spec, TrainConfig(compute_dtype="float32"), 8)
+    shards, st = eng.shard_data(shards_np), eng.init_state(1)
+    sampler = ShardSampler(8, shards_np.shape[1], 10, seed=0)
+    eng.run_rounds(st, shards, sampler, warm)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng.run_rounds(st, shards, sampler, timed)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / timed * 1e3
+
+
+def _launch_ranks(world: int, argv, timeout: float):
+    """``python -m torch.distributed.run`` of this script's rank program on
+    ``world`` local ranks; every rank is killed if it outlives ``timeout``.
+    Returns (exit code, output)."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(ROOT), env.get("PYTHONPATH")]))
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: the ranks meet on loopback
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(world), str(ROOT / "chip_smoke.py"), "--rank-program", *map(str, argv)]
+    proc = subprocess.Popen(cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+    return proc.returncode, out
+
+
+def _json_lines(text: str):
+    """The JSON objects among a run's output lines (rank 0's metrics and
+    summary), any ``[rankN]:`` prefix dropped."""
+    out = []
+    for line in text.splitlines():
+        line = line.split("]:", 1)[1].strip() if line.startswith("[rank") else line.strip()
+        if line.startswith("{"):
+            out.append(json.loads(line))
+    return out
+
+
+def _same_tree(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_tree(a[k], b[k]) for k in a)
+    if hasattr(a, "dtype"):
+        return a.dtype == b.dtype and a.shape == b.shape and bool((a == b).all())
+    return a == b
+
+
+def phase_distributed(rounds: int = 10, n: int = 8):
+    """The headline config (CIFAR10, N=8, b=10, full width, float32) through
+    the CLI under ``torch.distributed.run`` on W local ranks over NCCL, W the
+    card count capped at the largest divisor of N it reaches: 10 rounds
+    with a swap at round 5 and checkpoints at rounds 5 and 9.  At W=1 the
+    run's final checkpoint (every arena of G and the 8 D, the Adam moments
+    and counts, the sampler), exports, worker CSVs and printed metrics must
+    be bit-identical to the single-process run at the same seed, both under
+    deterministic algorithms; at W>1 the run must finish with finite
+    metrics, and its distance from the single-process run is reported.
+    Launch counts are read from every rank.  Each rank also times warm
+    rounds of the sharded engine before the CLI run, as this process times
+    the single-process engine after it."""
+    import numpy as np
+    import torch
+
+    from mdgan_tpu_torch.cli import train
+
+    cards = torch.cuda.device_count()
+    world = max(d for d in range(1, n + 1) if n % d == 0 and d <= cards)
+    argv = ["--mode", "mdgan", "--dataset", "CIFAR10", "--num_workers", str(n),
+            "--batch_size", "10", "--epochs", str(rounds), "--swap_interval", "5",
+            "--log_interval", "5", "--checkpoint_interval", "5", "--compute_dtype", "float32"]
+    name = f"mdgan.{n}.CIFAR10"
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks_dir, single_dir = Path(tmp) / "ranks", Path(tmp) / "single"
+        t = time.perf_counter()
+        rc, out = _launch_ranks(world, [ranks_dir, *argv, *out_dirs(ranks_dir)], timeout=600)
+        ranks_s = time.perf_counter() - t
+        require(rc == 0, f"distributed: {world} ranks exited {rc}:\n{out[-4000:]}")
+        lines = _json_lines(out)
+        summary, logs = lines[-1], lines[:-1]
+        per_rank = [json.loads((ranks_dir / f"rank_{r}.json").read_text())
+                    for r in range(world)]
+        launches = [r["launches"] for r in per_rank]
+        chunks = cli_chunks(rounds, 5, 5, 100, 5)
+        for r, counts in enumerate(launches):
+            require(counts == {"adam": 2 * rounds, "adam_bf16m": 0, "sampling": len(chunks)},
+                    f"distributed rank {r}: launches {counts}, want adam {2 * rounds} and "
+                    f"sampling {len(chunks)} (chunks {chunks})")
+        require(summary["all_finite"] and summary["swaps"] == 1 and summary["rounds"] == rounds,
+                f"distributed: {summary}")
+
+        buf = io.StringIO()
+        torch.use_deterministic_algorithms(True)
+        try:
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                require(train.main(argv + out_dirs(single_dir)) == 0, "single-process run failed")
+            single_s = time.perf_counter() - t
+        finally:
+            torch.use_deterministic_algorithms(False)
+        single = _json_lines(buf.getvalue())
+        ckpt = [torch.load(d / "checkpoint_dir" / name / f"ckpt_{rounds - 1}.pt",
+                           map_location="cpu", weights_only=True) for d in (ranks_dir, single_dir)]
+        exports = sorted(str(p.relative_to(single_dir / "weights_dir"))
+                         for p in (single_dir / "weights_dir").rglob("*.npz"))
+        csvs = sorted(p.name for p in (single_dir / "log_dir").glob("*.worker.*.csv"))
+
+        def col(path, key):
+            import csv
+
+            return [row[key] for row in csv.DictReader(io.StringIO(path.read_text()))]
+
+        same = {
+            "checkpoint": _same_tree(ckpt[0], ckpt[1]),
+            "exports": all(_same_tree(dict(np.load(ranks_dir / "weights_dir" / e)),
+                                      dict(np.load(single_dir / "weights_dir" / e)))
+                           for e in exports),
+            "worker_csv_losses": all(col(ranks_dir / "log_dir" / c, "mean_d_loss")
+                                     == col(single_dir / "log_dir" / c, "mean_d_loss")
+                                     for c in csvs),
+            "printed_metrics": [{k: v for k, v in ln.items() if k != "elapsed_s"} for ln in logs]
+            == [{k: v for k, v in ln.items() if k != "elapsed_s"} for ln in single[:-1]],
+        }
+        d_params = [torch.cat([t.flatten() for t in c["nets"]["d"]["params"].values()])
+                    for c in ckpt]
+        max_rel = float(((d_params[0] - d_params[1]).abs()
+                         / (1e-12 + d_params[1].abs())).max())
+    if world == 1:
+        require(all(same.values()), f"distributed W=1 differs from one process: {same}")
+    r0, r1 = logs[-2], logs[-1]  # rounds 5 and 9
+    s0, s1 = single[-3], single[-2]
+    return {"world": world, "world_sizes_run": [world], "cards": cards, "backend": "nccl",
+            "host_ms_per_round": [r["host_ms_per_round"] for r in per_rank],
+            "single_host_ms_per_round": _round_host_ms(),
+            "bit_identical_to_one_process": same, "d_params_max_rel_diff": max_rel,
+            "launches_per_rank": launches, "chunks": chunks, "summary": summary,
+            "ranks_seconds": ranks_s, "single_seconds": single_s,
+            # the CLI runs' rounds 5-9, with an eval on its background thread
+            "cli_ms_per_round_rounds_5_9": (r1["elapsed_s"] - r0["elapsed_s"]) / 4 * 1e3,
+            "single_cli_ms_per_round_rounds_5_9": (s1["elapsed_s"] - s0["elapsed_s"]) / 4 * 1e3}
+
+
 def main() -> int:
     import torch
 
@@ -1001,6 +1261,9 @@ def main() -> int:
         return 2
     import mdgan_tpu_torch  # noqa: F401  (fails when run outside the repository)
     from mdgan_tpu_torch.ops import _build
+
+    if sys.argv[1:2] == ["--rank-program"]:  # a rank of the distributed phase
+        return rank_program(sys.argv[2:])
 
     # deterministic cuBLAS, for the trainer phase's bit-identical resume;
     # set before the first cuBLAS call of the process
@@ -1025,9 +1288,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t = time.perf_counter()
-    adam_rec, samp_rec = phase_kernels()
+    adam_rec, bf16m_rec, samp_rec = phase_kernels()
     emit({"phase": "kernels", "seconds": time.perf_counter() - t,
-          "adam": adam_rec, "sampling": samp_rec})
+          "adam": adam_rec, "adam_bf16m": bf16m_rec, "sampling": samp_rec})
 
     t = time.perf_counter()
     rec = phase_golden()
@@ -1045,6 +1308,13 @@ def main() -> int:
           "card": smi, "runs": runs})
 
     t = time.perf_counter()
+    dist_rec = phase_distributed()
+    emit({"phase": "distributed", "seconds": time.perf_counter() - t, "card": smi,
+          **dist_rec})
+    print(f"distributed: W={dist_rec['world']} (world sizes run: "
+          f"{dist_rec['world_sizes_run']}, {dist_rec['cards']} card(s))", flush=True)
+
+    t = time.perf_counter()
     rec, standalone_launches = phase_standalone()
     emit({"phase": "standalone", "seconds": time.perf_counter() - t, "card": smi, **rec})
 
@@ -1060,12 +1330,23 @@ def main() -> int:
     rec = phase_profile()
     emit({"phase": "profile", "seconds": time.perf_counter() - t, "card": smi, **rec})
 
-    paths = {"mdgan": mdgan_launches, "standalone": standalone_launches}
+    # each path's launches, counted in its run
+    paths = {"mdgan": {k: mdgan_launches["float32"][k] + mdgan_launches["bfloat16"][k]
+                       for k in ("adam", "adam_bf16m", "sampling")},
+             "mdgan_bf16_moments": mdgan_launches["bf16_moments_straggler"],
+             "standalone": standalone_launches,
+             "distributed": {k: sum(c[k] for c in dist_rec["launches_per_rank"])
+                             for k in ("adam", "adam_bf16m", "sampling")}}
     sa_samp = samp_rec["timed"]["standalone_T100"]
+    main_adam = {k: adam_rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    main_samp = {k: samp_rec[k] for k in ("ms", "plain_ms", "bound_ms")}
     by_path = {
-        "adam": {"mdgan": {k: adam_rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
-                 "standalone": adam_rec["standalone"]},
-        "sampling": {"mdgan": {k: samp_rec[k] for k in ("ms", "plain_ms", "bound_ms")},
+        "adam": {"mdgan": dict(main_adam), "standalone": adam_rec["standalone"],
+                 "distributed": dict(main_adam)},
+        "adam_bf16m": {"mdgan_bf16_moments": {k: bf16m_rec[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms")}},
+        "sampling": {"mdgan": dict(main_samp), "mdgan_bf16_moments": dict(main_samp),
+                     "distributed": dict(main_samp),
                      "standalone": {k: sa_samp[k] for k in ("ms", "plain_ms", "bound_ms")}},
     }
     # each family's paths: the kernels' times at that path's shapes (Adam a
@@ -1082,13 +1363,21 @@ def main() -> int:
     for name, key, source, replaces, rec in (
             ("adam", "adam", "mdgan_tpu_torch/csrc/adam.cu", "mdgan_tpu/ops/adam.py:43",
              adam_rec),
+            # a variant of the Adam kernel: JAX runs bf16 moments through
+            # optax (mdgan_tpu/engine/state.py:216-251), never through Pallas
+            ("adam_bf16m", "adam_bf16m", "mdgan_tpu_torch/csrc/adam.cu",
+             "mdgan_tpu/ops/adam.py:43", bf16m_rec),
             ("sample_normalize", "sampling", "mdgan_tpu_torch/csrc/sampling.cu",
              "mdgan_tpu/ops/sampling.py:27", samp_rec)):
+        launched = 0
         for path_name, counts in paths.items():
-            by_path[key][path_name]["launches"] = counts[key]
+            if path_name in by_path[key]:
+                by_path[key][path_name]["launches"] = counts.get(key, 0)
+            launched += counts.get(key, 0)
+        require(launched > 0, f"{name}: no launch on the main paths")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(counts[key] for counts in paths.values()),
+            "launches": launched,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "by_path": by_path[key]})

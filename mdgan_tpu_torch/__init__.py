@@ -12,10 +12,12 @@ kernels here (``csrc/``), built with ``nvcc`` on first use and bound with
 plain PyTorch versions run only for CPU tensors.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
-no GPU present they raise.
+no GPU present they raise.  Under ``python -m torch.distributed.run`` the
+MD-GAN run shards its discriminators over the ranks, one process a GPU.
 
 Layout (mirrors ``mdgan_tpu``):
-    core/      config dataclasses, dataset registry, random lanes, device choice
+    core/      config dataclasses, dataset registry, random lanes, device choice,
+               the rank layout and the process group
     data/      MNIST / CIFAR-10 / CelebA / FFHQ-128 / synthetic loaders,
                partitioner, sampler
     models/    DCGAN-32, MLP-GAN, DCGAN-64, StyleGAN2, flax-convention
@@ -25,6 +27,7 @@ Layout (mirrors ``mdgan_tpu``):
                the trainers (host loop, evals, exports, checkpoints)
     metrics/   InceptionV3, FID and IS
     obs/       span CSVs, image grids, host monitor
+    parallel/  discriminator swaps across ranks (gather and pair)
     utils/     checkpoints and weight exports
     cli/       the train entry point, Inception weight conversion
 

@@ -16,6 +16,18 @@ Usage:
     python -m mdgan_tpu_torch.cli.train --mode standalone --dataset CIFAR10 \
         --batch_size 10 --epochs 30000
 
+On several cards, one process a card, the N discriminators sharded over them
+(N/W each; NCCL, or gloo with ``--device cpu``):
+    python -m torch.distributed.run --standalone --nproc_per_node <cards> \
+        -m mdgan_tpu_torch.cli.train --mode mdgan --num_workers 8 ...
+Rank 0 prints and writes every file; ``--swap_impl ppermute`` (or ``auto``
+with one worker a rank) swaps discriminators point to point.
+
+``--moment_dtype bfloat16`` keeps the Adam moments in bfloat16 (optax's
+rounding, through the bf16-moment CUDA kernel); ``--straggler_rate r`` drops
+each worker's feedback with probability r a round, keeping at least one, and
+averages the generator's step over the kept ones (``n_feedbacks`` column).
+
 Flags that name TPU machinery (``--scan_unroll``, ``--no_pallas``,
 ``--fused_adam``, ``--pallas_sampling``) are accepted and change nothing: on
 a CUDA device Adam and sampling always run through the CUDA kernels.
@@ -30,6 +42,7 @@ import json
 import logging
 from pathlib import Path
 
+from mdgan_tpu_torch.core import distributed
 from mdgan_tpu_torch.core.config import (
     DataConfig, MeshConfig, OptimizerConfig, RunConfig, TrainConfig,
 )
@@ -91,7 +104,7 @@ def build_parser() -> argparse.ArgumentParser:
 # flags whose feature waits for a later slice -> the ROADMAP item
 _NOT_PORTED = [
     (lambda a: a.num_replicas > 1 or a.num_tensor > 1,
-     "--num_replicas/--num_tensor > 1", "ROADMAP.md A.8"),
+     "--num_replicas/--num_tensor > 1", "ROADMAP.md A.8b"),
     (lambda a: a.download, "--download", "ROADMAP.md A.9"),
 ]
 # chunks of the run that --profile_dir traces, after one warm-up chunk
@@ -149,6 +162,17 @@ def _profiler(profile_dir: str):
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s - %(message)s")
     args = build_parser().parse_args(argv)
+    # join torch.distributed.run's process group first (mdgan_tpu/cli/train.py
+    # calls maybe_initialize first too); a no-op in a single process
+    joined = distributed.maybe_initialize(args.device)
+    try:
+        return _run(args)
+    finally:
+        if joined:
+            distributed.shutdown()
+
+
+def _run(args: argparse.Namespace) -> int:
     cfg = config_from_args(args)
     from mdgan_tpu_torch.engine.train_loop import MDGANTrainer, StandaloneTrainer
 
@@ -171,7 +195,8 @@ def main(argv=None) -> int:
     finally:
         if monitor is not None:
             monitor.stop()
-    print(json.dumps(summary), flush=True)
+    if distributed.is_main():
+        print(json.dumps(summary), flush=True)
     return 0
 
 

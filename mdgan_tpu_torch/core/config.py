@@ -33,7 +33,9 @@ class OptimizerConfig:
     beta_1: float = 0.0
     beta_2: float = 0.999
     eps: float = 1e-8
-    # Storage dtypes of the Adam moments. Only "float32" is ported so far.
+    # Storage dtypes of the Adam moments, "float32" or "bfloat16"; the CLI's
+    # --moment_dtype sets both (mdgan_tpu/cli/train.py:129-137), and the
+    # port's kernels take them only together.
     mu_dtype: str = "float32"
     nu_dtype: str = "float32"
 
@@ -55,8 +57,11 @@ class DataConfig:
 class MeshConfig:
     """Device layout (``mdgan_tpu/core/config.py:62-88``).
 
-    Only ``num_workers`` (N, the number of discriminators) has an effect on
-    one GPU; replica and tensor axes above 1 wait for the multi-GPU port.
+    ``num_workers`` is N, the number of discriminators.  Under
+    ``torch.distributed`` the N discriminators are sharded over the W
+    ranks, N/W each (``core/mesh.py``): the JAX package's workers axis.
+    ``num_devices`` and the axis names have no effect; replica and tensor
+    axes above 1 are not ported yet (ROADMAP.md A.8b).
     """
 
     num_workers: int = 8

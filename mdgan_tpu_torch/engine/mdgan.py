@@ -1,6 +1,6 @@
-"""The MD-GAN round on one device.
+"""The MD-GAN round, on one device or sharded over ``torch.distributed`` ranks.
 
-Port of the single-device branches of ``mdgan_tpu/engine/mdgan.py:59-608``.
+Port of ``mdgan_tpu/engine/mdgan.py:59-608``.
 Per round (``MDGANEngine._step``, ``:392-483``, with ``_d_region``,
 ``:203-310``):
 
@@ -25,6 +25,29 @@ discriminators' params and BN stats; Adam moments stay put unless
 ``swap_opt_state``.  A loop over the N discriminators is the first form;
 batching them into grouped convolutions is later work.
 
+**Stragglers** (``--straggler_rate``, ``:404-414, 445-459, 476-479``): every
+round draws u ~ U(0,1) for the N workers from lane (STRAGGLER, step) and the
+server keeps the feedbacks with ``u <= 1 - rate``, and always the earliest
+one.  The dropped feedbacks add nothing to the cotangent, ``feedback_norm``
+is taken before the drop, the G step averages over the kept ones,
+1/(b*|S|), and the round reports ``n_feedbacks`` = |S|.
+
+**Sharded over ranks.**  Under ``torch.distributed`` (``core/mesh.py``)
+each of the W ranks holds the replicated generator and N/W discriminators,
+their shards and their Adam state; the round is then the explicit SPMD
+program that ``_d_region_shard_map`` (``:312-390``) and
+``parallel/shard_map_step.py`` write with ``shard_map``, and there is no
+second form of it.  Each rank gathers its workers' real batches (its columns
+of the global sampler's (T, N, b) indices; every rank runs the same seeded
+sampler), trains them, and scatter-adds their feedbacks into a local
+(k, b, C, H, W) cotangent; one ``all_reduce`` of the cotangent and the
+feedbacks' squared sum is the round's one collective (the ``psum`` of
+``:372-375``).  Then every rank runs the same G backward and G Adam step, so
+G stays bit-equal on every rank.  Initial weights, dropout keys and the
+straggler mask are keyed by the GLOBAL worker id, so the run equals the
+single-process one up to the order of that sum.  The per-worker losses are
+gathered to (N,) once a chunk.
+
 A discriminator with dropout (the MLP's) draws its masks from the DROPOUT
 lane, keyed as the JAX engine folds its dropout key (``:252-268, 287-288``):
 the D step's forwards by (step, local epoch l, worker w, half: 0 real, 1
@@ -45,13 +68,15 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mdgan_tpu_torch.core import prng
+from mdgan_tpu_torch.core import distributed, prng
 from mdgan_tpu_torch.core.config import TrainConfig, k_batches, resolve_device
+from mdgan_tpu_torch.core.mesh import rank_layout
 from mdgan_tpu_torch.core.registry import DatasetSpec
-from mdgan_tpu_torch.engine.state import MDGANState, NetState
+from mdgan_tpu_torch.engine.state import MDGANState, NetState, moment_dtype
 from mdgan_tpu_torch.models.layers import dcgan_init_
 from mdgan_tpu_torch.ops import losses
 from mdgan_tpu_torch.ops.sampling import sample_normalize
+from mdgan_tpu_torch.parallel import swap as swap_lib
 
 # the most float32 bytes one sampling launch of a chunk writes
 GATHER_CAP_BYTES = 256 * 2 ** 20
@@ -71,10 +96,8 @@ class EngineBase:
         factories, each to the nets whose ``spec.g_widths``/``d_widths``
         name it (``ngf``/``ndf`` for the DCGANs; ``base_features``,
         ``max_res`` and ``map_layers`` for StyleGAN2)."""
-        for opt in (train_cfg.generator_opt, train_cfg.discriminator_opt):
-            if (opt.mu_dtype, opt.nu_dtype) != ("float32", "float32"):
-                raise NotImplementedError(
-                    "bfloat16 Adam moments are not ported yet (ROADMAP.md A.6)")
+        self._g_moments = moment_dtype(train_cfg.generator_opt)
+        self._d_moments = moment_dtype(train_cfg.discriminator_opt)
         if train_cfg.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {train_cfg.compute_dtype!r}")
         unknown = set(model_kwargs or {}) - set(spec.g_widths) - set(spec.d_widths)
@@ -98,13 +121,14 @@ class EngineBase:
         the CPU, so every device starts from the same weights)."""
         g = self._init(self.spec.make_generator(**self._kw(self.spec.g_widths)),
                        prng.generator(seed, prng.INIT_G))
-        return NetState([g], self.device)
+        return NetState([g], self.device, self._g_moments)
 
-    def _new_discriminators(self, seed: int, n: int) -> NetState:
-        """n discriminators, copy w from lane (INIT_D, w)."""
+    def _new_discriminators(self, seed: int, workers: Sequence[int]) -> NetState:
+        """The discriminators of global worker ids ``workers``, worker w
+        from lane (INIT_D, w)."""
         return NetState([self._init(self.spec.make_discriminator(**self._kw(self.spec.d_widths)),
                                     prng.generator(seed, prng.INIT_D, w))
-                         for w in range(n)], self.device)
+                         for w in workers], self.device, self._d_moments)
 
     def _d_forward(self, d, x: torch.Tensor, seed: int, step: int, path: Tuple[int, ...],
                    masks: Optional[Masks]) -> torch.Tensor:
@@ -162,41 +186,44 @@ class EngineBase:
 
 
 class MDGANEngine(EngineBase):
-    """Holds the models' factories, the device and the round."""
+    """Holds the models' factories, the device, the rank layout and the round."""
 
     def __init__(self, spec: DatasetSpec, train_cfg: TrainConfig, num_workers: int,
                  model_kwargs: Optional[Dict] = None):
+        """The workers this process holds come from the ``torch.distributed``
+        group (``core/mesh.py``): all N without one."""
         if num_workers < 1:
             raise ValueError("need at least one discriminator worker")
-        if train_cfg.straggler_rate != 0.0:
-            raise NotImplementedError(
-                "straggler_rate > 0 is not ported yet (ROADMAP.md A.6, the "
-                "straggler mask and the 1/(b*|S|) mean)")
-        if train_cfg.swap_impl == "ppermute":
-            raise NotImplementedError(
-                "swap_impl='ppermute' needs the multi-GPU port (ROADMAP.md A.8)")
+        if not 0.0 <= train_cfg.straggler_rate < 1.0:
+            raise ValueError(
+                f"straggler_rate must be in [0, 1), got {train_cfg.straggler_rate}")
         super().__init__(spec, train_cfg, model_kwargs)
         self.n = num_workers
+        self.layout = rank_layout(num_workers)
         self.k = k_batches(num_workers)
-        w = torch.arange(num_workers, device=self.device)
+        w = torch.arange(self.layout.lo, self.layout.hi, device=self.device)
         self._g_assign = w % self.k          # X_g batch per worker (server.py:238)
         self._d_assign = (w + 1) % self.k    # X_d batch per worker (server.py:239)
+        self._stragen = torch.Generator(device=self.device)
 
     # ------------------------------------------------------------------
     # initialization
     # ------------------------------------------------------------------
 
     def init_state(self, seed: int) -> MDGANState:
-        """G from lane INIT_G, discriminator w from lane (INIT_D, w)."""
+        """G from lane INIT_G, discriminator w from lane (INIT_D, w), for
+        this rank's global worker ids w."""
         return MDGANState(g=self.new_generator(seed),
-                          d=self._new_discriminators(seed, self.n), seed=seed)
+                          d=self._new_discriminators(seed, self.layout.workers), seed=seed)
 
     def shard_data(self, shards: np.ndarray) -> torch.Tensor:
-        """The (N, S, H, W, C) uint8 shard stack, resident on the device."""
+        """This rank's rows of the (N, S, H, W, C) uint8 shard stack,
+        resident on the device."""
         if shards.dtype != np.uint8 or shards.ndim != 5 or shards.shape[0] != self.n:
             raise ValueError(f"shards must be (N={self.n}, S, H, W, C) uint8, "
                              f"got {shards.shape} {shards.dtype}")
-        return torch.from_numpy(np.ascontiguousarray(shards)).to(self.device)
+        mine = shards[self.layout.lo:self.layout.hi]
+        return torch.from_numpy(np.ascontiguousarray(mine)).to(self.device)
 
     # ------------------------------------------------------------------
     # one training round
@@ -206,31 +233,64 @@ class MDGANEngine(EngineBase):
         """This round's k*b latents from lane (LATENT, step)."""
         return self._latents(st.step, st.seed, self.k * self.cfg.batch_size)
 
+    def straggler_mask(self, st: MDGANState) -> torch.Tensor:
+        """This round's (N,) accepted-feedback mask from lane (STRAGGLER,
+        step): u ~ U(0,1) a worker, kept iff ``u <= 1 - rate``, and the
+        earliest arrival always (``mdgan.py:404-414``).  Every rank draws
+        all N."""
+        prng.reseed(self._stragen, st.seed, prng.STRAGGLER, st.step)
+        u = torch.rand(self.n, generator=self._stragen, device=self.device)
+        return (u <= 1.0 - self.cfg.straggler_rate) | (u == u.min())
+
     def step(self, st: MDGANState, data: torch.Tensor, idx: torch.Tensor,
-             z: Optional[torch.Tensor] = None,
-             masks: Optional[Masks] = None) -> Dict[str, torch.Tensor]:
+             z: Optional[torch.Tensor] = None, masks: Optional[Masks] = None,
+             fb_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """One round, updating ``st`` in place.
 
-        data: (N, S, H, W, C) uint8 on the device; idx: (N, b) int32 on the
-        device; z: optional (k*b, z_dim) latents; masks: optional dropout
-        keep masks by key path, (l, w, half) for the D step and
-        (local_epochs, w) for the feedback (tests inject JAX's).
+        data: this rank's (N/W, S, H, W, C) uint8 shards on the device
+        (:meth:`shard_data`); idx: the round's (N, b) int32 indices of all
+        N workers, on the device; z: optional (k*b, z_dim) latents; masks:
+        optional dropout keep masks by key path, (l, w, half) for the D step
+        and (local_epochs, w) for the feedback, w the global worker id
+        (tests inject JAX's); fb_mask: optional (N,) bool straggler mask
+        (tests inject JAX's; drawn from its lane when ``straggler_rate`` > 0).
         Returns device tensors: ``mean_d_loss`` (N,), ``g_feedback_loss``
-        (N,), ``feedback_norm`` () and ``x_eval`` (k*b, C, H, W), the images
-        of the pre-update generator.
+        (N,), ``feedback_norm`` (), ``n_feedbacks`` () under the straggler
+        policy, and ``x_eval`` (k*b, C, H, W), the images of the pre-update
+        generator.
         """
-        return self._round(st, sample_normalize(data, idx), z, masks)
+        lo, hi = self.layout.lo, self.layout.hi
+        m = self._round(st, sample_normalize(data, idx[lo:hi]), z, masks, fb_mask)
+        for key, full in zip(("mean_d_loss", "g_feedback_loss"),
+                             self._gather_workers(m["mean_d_loss"], m["g_feedback_loss"])):
+            m[key] = full
+        return m
+
+    def _gather_workers(self, *local: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """Per-worker series (..., N/W) from every rank -> (..., N), in one
+        ``all_gather``."""
+        if not self.layout.distributed:
+            return local
+        full = distributed.all_gather_cat(torch.stack([t.float() for t in local]),
+                                          self.layout.world, dim=-1)
+        return tuple(f.to(t.dtype) for f, t in zip(full.unbind(0), local))
 
     def _round(self, st: MDGANState, real: torch.Tensor, z: Optional[torch.Tensor],
-               masks: Optional[Masks] = None) -> Dict[str, torch.Tensor]:
-        """The round's body on its real batch ``real``, (N, b, C, H, W) float32."""
+               masks: Optional[Masks] = None,
+               fb_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The round's body on this rank's real batches ``real``,
+        (N/W, b, C, H, W) float32.  The per-worker metrics it returns are
+        this rank's."""
         cfg, n, k, b = self.cfg, self.n, self.k, self.cfg.batch_size
+        lo, nl = self.layout.lo, self.layout.per_rank
         if z is None:
             z = self.latents(st)
+        if fb_mask is None and cfg.straggler_rate > 0.0:
+            fb_mask = self.straggler_mask(st)
         g_net, d_net = st.g.modules[0], st.d.modules
 
-        def d_fwd(w, x, *path):
-            return self._d_forward(d_net[w], x, st.seed, st.step, path, masks)
+        def d_fwd(i, x, *path):
+            return self._d_forward(d_net[i], x, st.seed, st.step, path, masks)
 
         # (1) generate k*b fakes in one forward; the graph waits for (5)
         with self._autocast():
@@ -240,13 +300,13 @@ class MDGANEngine(EngineBase):
 
         # (2) fake batches per worker, (3) real batches and local D steps
         x_d = x_k[self._d_assign]
-        d_loss_sum = torch.zeros(n, device=self.device)
+        d_loss_sum = torch.zeros(nl, device=self.device)
         for l in range(cfg.local_epochs):
             st.d.zero_grad()
             with self._autocast():
-                loss = torch.stack([losses.d_loss(d_fwd(w, real[w], l, w, 0),
-                                                  d_fwd(w, x_d[w], l, w, 1))
-                                    for w in range(n)])
+                loss = torch.stack([losses.d_loss(d_fwd(i, real[i], l, lo + i, 0),
+                                                  d_fwd(i, x_d[i], l, lo + i, 1))
+                                    for i in range(nl)])
             loss.sum().backward()
             st.d.adam_step(cfg.discriminator_opt)
             d_loss_sum += loss.detach()
@@ -255,23 +315,49 @@ class MDGANEngine(EngineBase):
         # (4) feedback through the updated discriminators
         x_g = x_k[self._g_assign].requires_grad_(True)
         with self._autocast():
-            g_losses = torch.stack([losses.g_loss(d_fwd(w, x_g[w], cfg.local_epochs, w))
-                                    for w in range(n)])
+            g_losses = torch.stack([losses.g_loss(d_fwd(i, x_g[i], cfg.local_epochs, lo + i))
+                                    for i in range(nl)])
         (feedback,) = torch.autograd.grad(g_losses.sum(), x_g)
         fb_sq = feedback.square().sum()
+        if fb_mask is not None:
+            # the server's straggler discard: late feedbacks contribute zero
+            keep = fb_mask[lo:lo + nl].to(feedback.dtype)
+            feedback = feedback * keep.view(-1, *([1] * (feedback.dim() - 1)))
 
-        # (5) scatter-add onto the source batches, one G backward at 1/(b*N)
+        # (5) scatter-add onto the source batches, summed over the ranks,
+        # then one G backward at 1/(b*N), or 1/(b*|S|) under stragglers
         cot = torch.zeros_like(x_k).index_add_(0, self._g_assign, feedback)
+        if self.layout.distributed:
+            cot, fb_sq = self._sum_over_ranks(cot, fb_sq)
         st.g.zero_grad()
-        x_all.backward(cot.view_as(x_all) * (1.0 / (b * n)))
+        if fb_mask is None:
+            x_all.backward(cot.view_as(x_all) * (1.0 / (b * n)))
+        else:
+            scale = 1.0 / (b * fb_mask.sum().to(torch.float32))
+            x_all.backward((cot.view_as(x_all).float() * scale).to(x_all.dtype))
         st.g.adam_step(cfg.generator_opt)
         st.step += 1
-        return {
+        out = {
             "mean_d_loss": mean_d_loss,
             "g_feedback_loss": g_losses.detach(),
             "feedback_norm": fb_sq.sqrt(),
             "x_eval": x_k.reshape(k * b, *img_shape),
         }
+        if fb_mask is not None:
+            out["n_feedbacks"] = fb_mask.sum().to(torch.int32)
+        return out
+
+    @staticmethod
+    def _sum_over_ranks(cot: torch.Tensor, fb_sq: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The round's one collective: the cotangent and the feedbacks'
+        squared sum packed into one float32 buffer and summed over the ranks
+        (the two ``psum``s of ``mdgan.py:372-375``)."""
+        import torch.distributed as dist
+
+        buf = torch.cat([cot.reshape(-1).float(), fb_sq.reshape(1).float()])
+        dist.all_reduce(buf)
+        return buf[:-1].view(cot.shape).to(cot.dtype), buf[-1].to(fb_sq.dtype)
 
     def run_rounds(self, st: MDGANState, data: torch.Tensor, sampler, num_rounds: int,
                    z: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
@@ -285,12 +371,17 @@ class MDGANEngine(EngineBase):
         """
         if z is not None and z.shape[0] != num_rounds:
             raise ValueError(f"z holds {z.shape[0]} rounds of latents, want {num_rounds}")
-        idx = self.put_indices(sampler.next_chunk(num_rounds), data.shape[1])
+        idx = sampler.next_chunk(num_rounds)[:, self.layout.lo:self.layout.hi]
+        idx = self.put_indices(idx, data.shape[1])
         out: List[Dict[str, torch.Tensor]] = [
             self._round(st, real, None if z is None else z[t])
             for t, real in enumerate(self._real_batches(data, idx))]
-        stacked = {key: torch.stack([m[key] for m in out])
-                   for key in ("mean_d_loss", "g_feedback_loss", "feedback_norm")}
+        keys = ["mean_d_loss", "g_feedback_loss", "feedback_norm"]
+        if "n_feedbacks" in out[0]:
+            keys.append("n_feedbacks")
+        stacked = {key: torch.stack([m[key] for m in out]) for key in keys}
+        stacked["mean_d_loss"], stacked["g_feedback_loss"] = self._gather_workers(
+            stacked["mean_d_loss"], stacked["g_feedback_loss"])
         stacked["x_eval"] = out[-1]["x_eval"]
         return stacked
 
@@ -310,10 +401,22 @@ class MDGANEngine(EngineBase):
         return perm.astype(np.int32)
 
     def swap(self, st: MDGANState, perm: np.ndarray) -> MDGANState:
-        """Worker w takes worker perm[w]'s params and BN stats."""
+        """Worker w takes worker perm[w]'s params and BN stats (and Adam
+        moments under ``swap_opt_state``), honouring ``swap_impl``
+        (``mdgan.py:543-570``): the pair swap where there is one worker per
+        rank (``auto``, or ``ppermute``, which raises elsewhere), else the
+        gather swap (``parallel/swap.py``)."""
         perm = np.asarray(perm, np.int64)
         if sorted(perm.tolist()) != list(range(self.n)):
             raise ValueError(f"swap needs a permutation of range({self.n}), got {perm}")
-        perm_t = torch.as_tensor(perm, device=self.device)
-        st.d.permute_(perm_t, with_opt_state=self.cfg.swap_opt_state)
+        impl, lay = self.cfg.swap_impl, self.layout
+        eligible = lay.distributed and lay.world == self.n
+        if impl == "ppermute" and not eligible:
+            raise ValueError(
+                "swap_impl='ppermute' needs one worker per rank (world size "
+                f"{lay.world}, workers={self.n}); use 'gather' or 'auto'")
+        if impl == "ppermute" or (impl == "auto" and eligible):
+            swap_lib.swap_pairs(st.d, perm, lay, self.cfg.swap_opt_state)
+        else:
+            swap_lib.swap_gather(st.d, perm, lay, self.cfg.swap_opt_state)
         return st

@@ -41,7 +41,7 @@ class StandaloneEngine(EngineBase):
     def init_state(self, seed: int) -> StandaloneState:
         """G from lane INIT_G, D from lane (INIT_D, 0)."""
         return StandaloneState(g=self.new_generator(seed),
-                               d=self._new_discriminators(seed, 1), seed=seed)
+                               d=self._new_discriminators(seed, [0]), seed=seed)
 
     def put_data(self, data: np.ndarray) -> torch.Tensor:
         """The (S, H, W, C) uint8 dataset, resident on the device as a

@@ -33,11 +33,23 @@ from mdgan_tpu_torch.core.config import OptimizerConfig
 from mdgan_tpu_torch.ops.adam import adam_update, bias_scalars
 
 
+def moment_dtype(cfg: OptimizerConfig) -> torch.dtype:
+    """The torch dtype of an optimizer config's Adam moments."""
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if cfg.mu_dtype not in dtypes or cfg.nu_dtype != cfg.mu_dtype:
+        raise ValueError(f"Adam moments must be both float32 or both bfloat16 "
+                         f"(--moment_dtype), got mu {cfg.mu_dtype!r}, nu {cfg.nu_dtype!r}")
+    return dtypes[cfg.mu_dtype]
+
+
 class NetState:
     """n copies of one network on flat arenas, with Adam state in optax's
-    layout: ``mu``/``nu`` shaped like the params, one shared ``count``."""
+    layout: ``mu``/``nu`` shaped like the params, one shared ``count``.
+    ``moment_dtype`` is the moments' storage dtype, float32 or bfloat16
+    (``--moment_dtype``; the params and gradients stay float32)."""
 
-    def __init__(self, modules: Sequence[nn.Module], device):
+    def __init__(self, modules: Sequence[nn.Module], device,
+                 moment_dtype: torch.dtype = torch.float32):
         if not modules:
             raise ValueError("NetState needs at least one module")
         self.n = len(modules)
@@ -53,8 +65,8 @@ class NetState:
         kw = dict(dtype=torch.float32, device=device)
         self.params = torch.empty(self.n * self.numel, **kw)
         self.grads = torch.zeros(self.n * self.numel, **kw)
-        self.mu = torch.zeros(self.n * self.numel, **kw)
-        self.nu = torch.zeros(self.n * self.numel, **kw)
+        self.mu = torch.zeros(self.n * self.numel, dtype=moment_dtype, device=device)
+        self.nu = torch.zeros(self.n * self.numel, dtype=moment_dtype, device=device)
         self.stats = torch.empty(self.n * self.stat_numel, **kw)
         self.count = 0
         with torch.no_grad():
@@ -115,8 +127,9 @@ class NetState:
         self.grads.zero_()
 
     def adam_step(self, cfg: OptimizerConfig) -> None:
-        """One Adam step over every copy: one kernel launch on CUDA
-        (``state.optimizer_step``, ``state.py:261-266``)."""
+        """One Adam step over every copy: one kernel launch on CUDA, the
+        kernel of the moments' dtype (``state.optimizer_step``,
+        ``state.py:261-266``)."""
         self.count += 1
         lr_c1, inv_c2 = bias_scalars(cfg.lr, cfg.beta_1, cfg.beta_2, self.count)
         adam_update(self.params, self.grads, self.mu, self.nu, lr_c1, inv_c2,
@@ -136,7 +149,9 @@ class NetState:
 
 @dataclasses.dataclass
 class MDGANState:
-    """Generator (n=1), N discriminators, the run's seed and round counter."""
+    """Generator (n=1), the discriminators this process holds (all N, or
+    its rank's N/W under ``torch.distributed``), the run's seed and round
+    counter."""
 
     g: NetState
     d: NetState

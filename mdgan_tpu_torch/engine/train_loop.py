@@ -1,8 +1,19 @@
-"""Host-side training orchestration on one device.
+"""Host-side training orchestration, on one device or over ranks.
 
-Port of ``mdgan_tpu/engine/train_loop.py:54-959`` without its multi-host
-branches (ROADMAP.md A.8): chunk scheduling, swap-pair sampling, FID/IS
-evaluation, image grids, span CSVs, weight exports and checkpoints.
+Port of ``mdgan_tpu/engine/train_loop.py:54-959``: chunk scheduling,
+swap-pair sampling, FID/IS evaluation, image grids, span CSVs, weight
+exports and checkpoints.
+
+Under ``torch.distributed`` (``python -m torch.distributed.run``, one rank a
+GPU) the MD-GAN trainer runs as JAX's multi-host trainer does
+(``train_loop.py:128-170, 265-275``): every rank runs the same chunk and
+swap schedule in lockstep, with swap permutations from the same seeded host
+RNG, over its N/W discriminators (``engine/mdgan.py``); chunk metrics are
+gathered to every rank; rank 0 alone writes the CSVs, image grids, exports
+and checkpoints and runs the evals (the generator is replicated, so rank 0
+holds it), and the discriminators are gathered to it for checkpoints and
+the final exports.  The other ranks keep the same row bookkeeping through
+null loggers.
 
 Round/event semantics follow the JAX trainer exactly:
   * swap at end of round e when ``e % swap_interval == 0 and e > 0`` and N > 1;
@@ -35,8 +46,9 @@ from typing import Callable, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from mdgan_tpu_torch.core import prng
+from mdgan_tpu_torch.core import distributed, prng
 from mdgan_tpu_torch.core.config import RunConfig
+from mdgan_tpu_torch.core.mesh import rank_layout
 from mdgan_tpu_torch.core.registry import get as get_spec
 from mdgan_tpu_torch.data.partitioner import shard_data
 from mdgan_tpu_torch.data.sampler import ShardSampler
@@ -121,19 +133,21 @@ class MDGANTrainer:
     def __init__(self, run_cfg: RunConfig):
         self.cfg = run_cfg
         tc = run_cfg.train
-        if run_cfg.mesh.num_replicas > 1 or run_cfg.mesh.num_tensor > 1:
-            raise NotImplementedError("replica and tensor axes need the multi-GPU "
-                                      "port (ROADMAP.md A.8)")
+        self.n = run_cfg.mesh.num_workers
+        # raises for the replica and tensor axes (A.8b) and a world size
+        # that does not divide N
+        rank_layout(self.n, run_cfg.mesh.num_replicas, run_cfg.mesh.num_tensor)
         if tc.chunk_size < 1:
             raise ValueError(f"chunk_size must be at least 1, got {tc.chunk_size}")
         self.spec = get_spec(run_cfg.data.dataset)
-        self.n = run_cfg.mesh.num_workers
         # the reference validates world-size parity at bootstrap
         if self.n > 1 and tc.swap_interval > 0 and self.n % 2 != 0:
             raise ValueError(
                 f"num_workers={self.n} must be even when discriminator swaps "
                 "are enabled (set --swap_interval 0 to disable)")
         self.engine = MDGANEngine(self.spec, tc, self.n)
+        self.layout = self.engine.layout
+        self._is_main = self.layout.is_main
         data = _load_run_data(run_cfg, self.spec)
         self.full_data = data
         # seed 0 == the reference's device_generator.manual_seed(0)
@@ -147,14 +161,22 @@ class MDGANTrainer:
         h, w, c = self.spec.shape
         self._payload_mb = tc.batch_size * h * w * c * 4 / 1024**2
         size_data, size_fb = 2 * self._payload_mb, self.n * self._payload_mb
-        self._row_template = lambda e: spans_lib.server_row_template(e, size_data, size_fb)
-        self.logger = spans_lib.SpanLogger(
-            Path(tc.log_dir) / f"{name}.server.logs.csv", self._row_template(0))
+        straggler = tc.straggler_rate > 0.0  # adds the n_feedbacks column
+        self._row_template = lambda e: spans_lib.server_row_template(
+            e, size_data, size_fb, straggler=straggler)
+
+        def make_logger(path, template):  # rank 0 owns the CSV files
+            if self._is_main:
+                return spans_lib.SpanLogger(path, template)
+            return spans_lib.NullSpanLogger(template)
+
+        self.logger = make_logger(Path(tc.log_dir) / f"{name}.server.logs.csv",
+                                  self._row_template(0))
         model_size = self.state.d.numel * 4 / 1024**2
         self._worker_row_template = spans_lib.worker_row_template(0, float(model_size))
         self._worker_logs = [
-            spans_lib.SpanLogger(Path(tc.log_dir) / f"{name}.worker.{r + 1}.logs.csv",
-                                 self._worker_row_template)
+            make_logger(Path(tc.log_dir) / f"{name}.worker.{r + 1}.logs.csv",
+                        self._worker_row_template)
             for r in range(self.n)]
         self._worker_col_index = {k: i for i, k in enumerate(self._worker_row_template)}
         self._last_d_loss: Optional[float] = None
@@ -180,7 +202,9 @@ class MDGANTrainer:
     # ------------------------------------------------------------------
 
     def _resume(self) -> None:
-        _, sampler_state, host_rng, step = self.ckpt.restore(self.state)
+        # each rank takes its workers' rows of the N-stacked leaves
+        rows = list(self.layout.workers) if self.n > 1 else None
+        _, sampler_state, host_rng, step = self.ckpt.restore(self.state, d_rows=rows)
         if sampler_state is not None:
             self.sampler.load_state_dict(sampler_state)
         if host_rng is not None:
@@ -255,27 +279,35 @@ class MDGANTrainer:
         lengths = [r["d_loss"].shape[0] for r in records]
         fetched = np.split(torch.cat([r["d_loss"] for r in records]).cpu().numpy(),
                            np.cumsum(lengths)[:-1])
+        n_fbs = [None] * len(records)
+        if records[0]["n_fb"] is not None:
+            n_fbs = np.split(torch.cat([r["n_fb"] for r in records]).cpu().numpy(),
+                             np.cumsum(lengths)[:-1])
         t1 = time.time()
         t_start = min(max(records[0]["t0"], self._prev_chunk_end), t1)
         total_rows = sum(lengths) or 1
         cursor = t_start
-        for i, (rec, d_losses) in enumerate(zip(records, fetched)):
+        for i, (rec, d_losses, n_fb) in enumerate(zip(records, fetched, n_fbs)):
             if i == len(records) - 1:
                 t_end = t1
             else:
                 t_end = cursor + (t1 - t_start) * (d_losses.shape[0] / total_rows)
             self._write_rows_for_chunk(d_losses, cursor, t_end, rec["e"],
-                                       rec["swapped_with"], rec["row"])
+                                       rec["swapped_with"], rec["row"], n_fb)
             cursor = t_end
         self._prev_chunk_end = t1
 
     def _write_rows_for_chunk(self, d_losses: np.ndarray, t0: float, t1: float, e: int,
-                              swapped_with, server_row: Optional[Dict]) -> None:
+                              swapped_with, server_row: Optional[Dict],
+                              n_fb: Optional[np.ndarray] = None) -> None:
         """One chunk's worker CSV rows, and its held server row's execution
-        window (``train_loop.py:453-565``)."""
+        window and, under the straggler policy, its round's accepted-feedback
+        count (``train_loop.py:453-565``)."""
         n_rows = d_losses.shape[0]
         self._last_d_loss = float(np.mean(d_losses[-1]))
         if server_row is not None:
+            if n_fb is not None:
+                server_row["n_feedbacks"] = int(n_fb[-1])
             for key in ("start.epoch", "start.calc_gradients", "start.epoch_calculation"):
                 server_row[key] = t0
             for key in ("end.calc_gradients", "end.epoch_calculation", "end.epoch"):
@@ -405,7 +437,8 @@ class MDGANTrainer:
                 swaps += 1
 
             eval_fut: Optional[Future] = None
-            if (tc.log_interval > 0 and e % tc.log_interval == 0) or e == tc.epochs - 1:
+            if self._is_main and ((tc.log_interval > 0 and e % tc.log_interval == 0)
+                                  or e == tc.epochs - 1):
                 self._print_log(e, m, t_start)
                 g_snap = self._snapshot_g()
                 if self._eval_pool is not None:
@@ -421,14 +454,16 @@ class MDGANTrainer:
                     self._eval_history.append(result)
             if _checkpoint_due(tc, e):
                 with self.logger.span("checkpoint"):
-                    self.ckpt.save(e, ckpt_lib.snapshot_state(self.state),
-                                   self.sampler.state_dict(),
-                                   ckpt_lib.host_rng_state(self.swap_rng))
+                    # every rank joins the discriminators' gather; rank 0 saves
+                    snap = ckpt_lib.snapshot_state(self.state, self.layout)
+                    if self._is_main:
+                        self.ckpt.save(e, snap, self.sampler.state_dict(),
+                                       ckpt_lib.host_rng_state(self.swap_rng))
             row = self.logger.take_row()
             holder: List[Optional[Future]] = [None]
-            self._metrics_batch.append(dict(d_loss=m["mean_d_loss"], t0=t_chunk0, e=e,
-                                            swapped_with=swapped_with, row=row,
-                                            fut_holder=holder))
+            self._metrics_batch.append(dict(d_loss=m["mean_d_loss"], n_fb=m.get("n_feedbacks"),
+                                            t0=t_chunk0, e=e, swapped_with=swapped_with,
+                                            row=row, fut_holder=holder))
             self._pending_rows.append((row, eval_fut, holder))
             if len(self._metrics_batch) >= max(1, min(tc.metrics_flush, 64)):
                 inflight.append(self._submit_metrics_batch())
@@ -444,14 +479,20 @@ class MDGANTrainer:
         self._drain_futures(self._log_futs)
         self.ckpt.wait_until_finished()
 
-        # final exports (reference server.py:372-375, worker.py:289-293)
-        wd = Path(tc.weights_dir)
-        ckpt_lib.save_net_weights(wd / "generator_final.npz", self.state.g)
-        d_trees = from_jax.export_net(self.state.d)
-        for r in range(self.n):
-            ckpt_lib.save_weights_only(
-                wd / f"worker_{r + 1}" / "discriminator.npz",
-                *(from_jax.index_tree(t, r) if self.n > 1 else t for t in d_trees))
+        # final exports (reference server.py:372-375, worker.py:289-293);
+        # every rank joins the discriminators' gather, rank 0 writes
+        snap = ckpt_lib.snapshot_state(self.state, self.layout)
+        if self._is_main:
+            wd = Path(tc.weights_dir)
+            ckpt_lib.save_net_weights(wd / "generator_final.npz", self.state.g)
+            d_net, d_snap = snap["nets"]["d"]
+            d_trees = from_jax.export_arenas(
+                d_net, {k: d_snap[k] for k in ("params", "stats")}, d_snap["copies"])
+            for r in range(self.n):
+                ckpt_lib.save_weights_only(
+                    wd / f"worker_{r + 1}" / "discriminator.npz",
+                    *(from_jax.index_tree(d_trees[k], r) if self.n > 1 else d_trees[k]
+                      for k in ("params", "stats")))
         wall = time.time() - t_start
         from mdgan_tpu_torch.metrics.inception import feature_source_if_loaded
 
@@ -516,6 +557,9 @@ class StandaloneTrainer:
         tc = run_cfg.train
         if tc.chunk_size < 1:
             raise ValueError(f"chunk_size must be at least 1, got {tc.chunk_size}")
+        if distributed.world_size() > 1:
+            raise ValueError("the standalone baseline runs in one process; start it "
+                             "without torch.distributed.run")
         self.spec = get_spec(run_cfg.data.dataset)
         self.engine = StandaloneEngine(self.spec, tc)
         data = _load_run_data(run_cfg, self.spec)

@@ -32,7 +32,7 @@ port's ``metrics/inception.py`` (the parity tests use it).
 from __future__ import annotations
 
 import functools
-from typing import Dict, Hashable, List, Mapping, Tuple
+from typing import Dict, Hashable, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -286,14 +286,18 @@ def export(module: torch.nn.Module) -> Tuple[Dict, Dict]:
 
 @torch.no_grad()
 def load_net(net, params: Mapping, stats: Mapping, mu: Mapping = None,
-             nu: Mapping = None, count: int = None):
+             nu: Mapping = None, count: int = None, rows: Sequence[int] = None):
     """Copy a JAX network state into an arena-backed ``NetState``
     (``engine/state.py``): params and BN stats, and optionally optax's Adam
     ``mu``/``nu`` (trees shaped like the params) and shared ``count``.  With
-    ``net.n > 1`` every tree is stacked on a leading N axis."""
+    ``net.n > 1`` every tree is stacked on a leading N axis and copy w reads
+    row w; ``rows`` names the rows the copies read instead (a rank's
+    workers, from trees of all N)."""
     role = role_of(net.modules[0])
 
     def pick(tree, w):
+        if rows is not None:
+            return index_tree(tree, rows[w])
         return index_tree(tree, w) if net.n > 1 else tree
 
     for w, module in enumerate(net.modules):
@@ -315,20 +319,26 @@ def _stack(trees):
     return np.stack(trees)
 
 
-def export_arenas(net, arenas: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+def export_arenas(net, arenas: Mapping[str, torch.Tensor], copies: int = None) -> Dict[str, Dict]:
     """Flat arenas in ``net``'s layout (the live ``params``/``stats``/
-    ``mu``/``nu`` or clones of them, on any device) -> flax trees under the
-    same keys (``stats``: BatchNorm statistics; the others: params-shaped),
-    stacked on a leading N axis when ``net.n > 1``."""
+    ``mu``/``nu`` or clones of them, on any device) -> flax trees of numpy
+    float32 arrays under the same keys (``stats``: BatchNorm statistics; the
+    others: params-shaped), stacked on a leading N axis when the arenas hold
+    more than one copy.  ``copies``: how many copies the arenas hold
+    (default ``net.n``; all N when a rank's ``net`` has gathered every
+    rank's)."""
     role = role_of(net.modules[0])
+    copies = net.n if copies is None else copies
     out = {}
     for key, arena in arenas.items():
-        host = arena.detach().to("cpu", copy=True)  # the trees must not alias the arena
+        # float32 on the host (bfloat16 moments widen exactly); the trees
+        # must not alias the arena
+        host = arena.detach().to("cpu", torch.float32, copy=True)
         views, to_jax = ((net.stat_views, stats_to_jax) if key == "stats"
                          else (net.views, params_to_jax))
         trees = [to_jax({k: v.numpy() for k, v in views(host, w).items()}, role)
-                 for w in range(net.n)]
-        out[key] = trees[0] if net.n == 1 else _stack(trees)
+                 for w in range(copies)]
+        out[key] = trees[0] if copies == 1 else _stack(trees)
     return out
 
 

@@ -11,13 +11,15 @@ file compiles in seconds, a file that includes ``torch/extension.h`` in
 minutes.  The library goes to ``build/`` at the repository root (ignored by
 git); its name carries a hash of the sources and flags, so a stale library is
 never loaded and a current one is reused; ptxas's resource report is kept
-beside it as ``.log``.  Nothing is built or loaded until a
+beside it as ``.log``.  Builds take a file lock, so the ranks of a
+``torch.distributed`` run starting on a cold ``build/`` run one ``nvcc``.  Nothing is built or loaded until a
 wrapper first sees a CUDA tensor.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -37,6 +39,7 @@ _c_void_p, _c_int, _c_int64, _c_float = (ctypes.c_void_p, ctypes.c_int,
 # C signatures of csrc/*.cu's extern "C" functions (all return cudaError_t as int)
 SIGNATURES = {
     "mdgan_adam_f32": [_c_void_p] * 4 + [_c_int64] + [_c_float] * 7 + [_c_void_p],
+    "mdgan_adam_f32_bf16m": [_c_void_p] * 4 + [_c_int64] + [_c_float] * 7 + [_c_void_p],
     "mdgan_sample_normalize_u8": [_c_void_p] * 3 + [_c_int64, _c_int, _c_int, _c_int64,
                                                     _c_int, _c_int, _c_void_p],
 }
@@ -93,6 +96,14 @@ def build(stem: str = "mdgan_kernels", sources=SOURCES) -> Path:
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f".{out.name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # another process may be building it
+        if not out.is_file():
+            _compile(out, sources)
+    return out
+
+
+def _compile(out: Path, sources) -> None:
     nvcc = find_nvcc()
     # compile to a private name, then rename: a concurrent or interrupted
     # build never leaves a half-written library under the final name
@@ -110,7 +121,6 @@ def build(stem: str = "mdgan_kernels", sources=SOURCES) -> Path:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return out
 
 
 def lib() -> ctypes.CDLL:

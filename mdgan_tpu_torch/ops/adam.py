@@ -1,4 +1,4 @@
-"""Fused Adam: the CUDA kernel's wrapper and its plain PyTorch version.
+"""Fused Adam: the CUDA kernels' wrapper and their plain PyTorch versions.
 
 Port of ``mdgan_tpu/ops/adam.py`` (the Pallas ``_adam_kernel``, ``:43-54``,
 driven per leaf by ``FusedAdam.update_in_place``, ``:108-162``).  Here one
@@ -10,8 +10,12 @@ discriminators — in place:
     p'  = p - lr_c1 * mu' / (sqrt(nu' * inv_c2) + eps)
 
 with ``lr_c1 = lr/(1-b1^t)`` and ``inv_c2 = 1/(1-b2^t)`` from
-:func:`bias_scalars`.  For a CUDA tensor :func:`adam_update` launches
-``csrc/adam.cu`` or raises; the plain version runs only for CPU tensors.
+:func:`bias_scalars`.  The moments are float32, or bfloat16 under
+``--moment_dtype bfloat16``: then the update follows optax's rounding points,
+as the JAX package runs bf16 moments through optax (:func:`adam_plain_bf16m`).
+For a CUDA tensor :func:`adam_update` launches the kernel of the moments'
+dtype in ``csrc/adam.cu`` or raises; the plain versions run only for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -42,10 +46,26 @@ def adam_plain(p, g, mu, nu, lr_c1, inv_c2, b1, b2, eps) -> None:
     nu.copy_(nu2)
 
 
+def adam_plain_bf16m(p, g, mu, nu, lr_c1, inv_c2, b1, b2, eps) -> None:
+    """The update with bfloat16 ``mu``/``nu``, at optax's rounding points
+    (``optax.tree.update_moment``: ``(1-b)*g**k + b*t``): the stored
+    moment times ``b`` rounds to bfloat16, the sum with the float32 gradient
+    term is float32, the parameter step uses those unrounded moments, and
+    they are stored rounded to nearest even."""
+    m = (b1 * mu).float() + (1.0 - b1) * g
+    v = (b2 * nu).float() + (1.0 - b2) * (g * g)
+    p.copy_(p - lr_c1 * m / (torch.sqrt(v * inv_c2) + eps))
+    mu.copy_(m)
+    nu.copy_(v)
+
+
 def _check(p, g, mu, nu) -> None:
-    for name, t in (("p", p), ("g", g), ("mu", mu), ("nu", nu)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"adam_update: {name} must be float32, got {t.dtype}")
+    for name, t, dtypes in (("p", p, (torch.float32,)), ("g", g, (torch.float32,)),
+                            ("mu", mu, (torch.float32, torch.bfloat16)),
+                            ("nu", nu, (mu.dtype,))):
+        if t.dtype not in dtypes:
+            raise TypeError(f"adam_update: {name} must be "
+                            f"{' or '.join(map(str, dtypes))}, got {t.dtype}")
         if t.dim() != 1 or t.numel() != p.numel():
             raise ValueError(f"adam_update: {name} must be flat with {p.numel()} "
                              f"elements, got shape {tuple(t.shape)}")
@@ -57,25 +77,33 @@ def _check(p, g, mu, nu) -> None:
 
 def adam_update(p, g, mu, nu, lr_c1: float, inv_c2: float,
                 b1: float, b2: float, eps: float) -> None:
-    """Update flat float32 ``p``, ``mu``, ``nu`` in place from gradient ``g``."""
+    """Update flat float32 ``p`` and ``mu``, ``nu`` (both float32 or both
+    bfloat16) in place from gradient ``g``."""
     _check(p, g, mu, nu)
+    bf16m = mu.dtype == torch.bfloat16
     if p.device.type == "cpu":
-        adam_plain(p, g, mu, nu, lr_c1, inv_c2, b1, b2, eps)
+        (adam_plain_bf16m if bf16m else adam_plain)(p, g, mu, nu, lr_c1, inv_c2, b1, b2, eps)
         return
     if p.device.type != "cuda":
         raise ValueError(f"adam_update: unsupported device {p.device}")
     if p.device.index != torch.cuda.current_device():
         raise ValueError(f"adam_update: tensors on {p.device}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
-    if any(t.data_ptr() % 16 for t in (p, g, mu, nu)):
-        raise ValueError("adam_update: arenas must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (p, g)) or any(
+            t.data_ptr() % (8 if bf16m else 16) for t in (mu, nu)):
+        raise ValueError("adam_update: arenas must be 16-byte aligned (8 for bf16 moments)")
     lib = _build.lib()
-    err = lib.mdgan_adam_f32(
-        p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(), p.numel(),
-        lr_c1, inv_c2, b1, 1.0 - b1, b2, 1.0 - b2, eps,
-        torch.cuda.current_stream(p.device).cuda_stream)
+    fn = lib.mdgan_adam_f32_bf16m if bf16m else lib.mdgan_adam_f32
+    err = fn(p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(), p.numel(),
+             lr_c1, inv_c2, b1, 1.0 - b1, b2, 1.0 - b2, eps,
+             torch.cuda.current_stream(p.device).cuda_stream)
     _build.check(err, "adam_update")
-    adam_update.launches += 1
+    if bf16m:
+        adam_update.launches_bf16m += 1
+    else:
+        adam_update.launches += 1
 
 
-adam_update.launches = 0  # kernel launches since the last reset
+# kernel launches since the last reset, one count per kernel
+adam_update.launches = 0          # mdgan_adam_f32
+adam_update.launches_bf16m = 0    # mdgan_adam_f32_bf16m

@@ -15,6 +15,13 @@ round ``step``, the run ``seed`` (the root of every random lane) and the
 sampler cursor.  So the file format does not depend on how the arenas are
 laid out.
 
+Adam moments keep their storage dtype in the file (bfloat16 under
+``--moment_dtype bfloat16``, as orbax stores JAX's).  A run sharded over
+``torch.distributed`` ranks writes the same file as a single-process run:
+rank 0 gathers every rank's discriminators into the N-stacked leaves and
+alone writes, and each rank restores its own workers' rows, so a checkpoint
+resumes at any world size that divides N.
+
 Saves run on one background thread, at most two in flight
 (``train_loop.py:690-712``), from device-side clones taken by
 :func:`snapshot_state` on the caller's thread.
@@ -28,11 +35,12 @@ import re
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
-from typing import Any, Deque, Dict, Mapping, Optional, Tuple
+from typing import Any, Deque, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from mdgan_tpu_torch.core import distributed
 from mdgan_tpu_torch.models import from_jax
 
 FORMAT = 1
@@ -63,19 +71,31 @@ def unflatten(flat: Mapping[str, Any]) -> Dict:
     return out
 
 
-def snapshot_state(st) -> Dict:
+def snapshot_state(st, layout=None) -> Optional[Dict]:
     """Device-side clones of a train state (``MDGANState`` or
     ``StandaloneState``) for a background save: the port's form of
-    ``_snapshot_state`` (``train_loop.py:316-327``)."""
+    ``_snapshot_state`` (``train_loop.py:316-327``).  Under a process group
+    (``layout``, a ``core.mesh.RankLayout``) every rank must call it: the
+    discriminators are gathered to rank 0, and the other ranks get None."""
+    d = st.d.snapshot()
+    d["copies"] = st.d.n
+    if layout is not None and layout.distributed:
+        for key in ("params", "stats", "mu", "nu"):
+            d[key] = distributed.gather_cat(d[key], layout.world, layout.rank)
+        d["copies"] = layout.num_workers
+        if not layout.is_main:
+            return None
     return {"step": int(st.step), "seed": int(st.seed),
-            "nets": {"g": (st.g, st.g.snapshot()), "d": (st.d, st.d.snapshot())}}
+            "nets": {"g": (st.g, st.g.snapshot()), "d": (st.d, d)}}
 
 
 def _net_payload(net, snap: Mapping) -> Dict:
-    trees = from_jax.export_arenas(net, {k: snap[k] for k in ("params", "stats", "mu", "nu")})
-    out = {("batch_stats" if k == "stats" else k): {key: torch.from_numpy(np.asarray(a))
-                                                    for key, a in flatten(tree).items()}
-           for k, tree in trees.items()}
+    keys = ("params", "stats", "mu", "nu")
+    trees = from_jax.export_arenas(net, {k: snap[k] for k in keys}, snap.get("copies"))
+    # each leaf in its arena's dtype: bfloat16 moments stay bfloat16
+    out = {("batch_stats" if k == "stats" else k): {
+        key: torch.from_numpy(np.asarray(a)).to(snap[k].dtype)
+        for key, a in flatten(tree).items()} for k, tree in trees.items()}
     out["count"] = int(snap["count"])
     return out
 
@@ -128,10 +148,12 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def restore(self, state, step: Optional[int] = None
+    def restore(self, state, step: Optional[int] = None, d_rows: Optional[Sequence[int]] = None
                 ) -> Tuple[Any, Optional[Dict], Optional[Dict], int]:
         """Load checkpoint ``step`` (default: the latest) into ``state`` in
-        place; returns (state, sampler_state, host_rng_state, step)."""
+        place; returns (state, sampler_state, host_rng_state, step).
+        ``d_rows``: the rows of the stacked discriminator leaves that
+        ``state.d``'s copies take (a rank's workers; default all)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
@@ -142,10 +164,11 @@ class CheckpointManager:
                              f"this reader knows {FORMAT}")
         for name in ("g", "d"):
             saved = payload["nets"][name]
-            trees = {k: unflatten({key: t.numpy() for key, t in saved[k].items()})
+            trees = {k: unflatten({key: t.float().numpy() for key, t in saved[k].items()})
                      for k in ("params", "batch_stats", "mu", "nu")}
             from_jax.load_net(getattr(state, name), trees["params"], trees["batch_stats"],
-                              trees["mu"], trees["nu"], saved["count"])
+                              trees["mu"], trees["nu"], saved["count"],
+                              rows=d_rows if name == "d" else None)
         state.step, state.seed = int(payload["step"]), int(payload["seed"])
         sampler = payload.get("sampler")
         if sampler is not None:

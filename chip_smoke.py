@@ -8,7 +8,8 @@ phase, started by the script itself.)  Phases, each printing one JSON line
 with its seconds:
 
   env      torch/CUDA versions and ``nvidia-smi`` name and power limit
-  build    the one ``nvcc`` build of ``mdgan_tpu_torch/csrc/*.cu``, timed
+  build    the one ``nvcc`` build of ``mdgan_tpu_torch/csrc/*.cu``, timed, and
+           the ``g++`` build of the host library ``data/native``, timed
   kernels  each CUDA kernel at the main paths' shapes against its plain
            PyTorch version on the card (Adam: the G arena, the 8-D arena of
            the MD-GAN round and the 1-D arena of the standalone round, 3
@@ -72,6 +73,32 @@ with its seconds:
            in standalone) and the sampling launches of the chunks, counted
            from the run against a count computed here; then a chunk's
            gather split at the 256 MiB cap held to the plain gather
+  tools    (run after trainer) the native host library of
+           ``mdgan_tpu_torch/data/native`` loaded (required;
+           ``MDGAN_TPU_NO_NATIVE`` must be unset); the full CIFAR-10 train
+           split written in its binary layout (5 x 10,000 records of 3,073 B,
+           the synthetic stand-in) and MNIST's 60,000-image train split in
+           raw idx files, each decoded natively and in numpy (3 runs each,
+           alternated), byte-equal to the source, host seconds of each, and
+           ``load_mnist`` on the raw files through the native decoder; the
+           headline CLI
+           (N=8, b=10, full width, float32, 10 rounds) on that ``.bin``
+           folder through the native decode and gather; ``--download``
+           offline: MNIST idx ``.gz`` files (8,000 train images) and a
+           ``cifar-10-python.tar.gz`` fetched from ``file://`` sources with
+           their checksums, corrupted copies rejected with nothing left,
+           then the CLI with ``--download --dataset MNIST`` for 5 MD-GAN
+           rounds (launch counts of both runs from the run); ``shard_data``
+           on FFHQ128's 8,000 stand-in examples (393 MB) through the
+           threaded gather, then that gather against numpy on the same
+           indices (3 runs each, alternated), byte-equal, host seconds of
+           each and the CPU count;
+           ``cli.generate`` from the trainer phase's checkpoint (64 samples
+           on the card, timed), from an export, and a filmstrip, with the
+           card's images against the CPU's (same latents, TF32 off, atol
+           1e-4); ``cli.convert_weights`` npz -> pt -> npz bit-exact on the
+           six (dataset, role) pairs; ``cli.analyze --json`` on the mdgan
+           phase's CSVs (20 rounds, a finite rate, the span ops)
 
 Then one JSON line with every kernel's record, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -87,6 +114,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -605,10 +633,11 @@ def phase_standalone_round():
             "param_max_abs_diff": dp, "g_stats_max_abs_diff": stat_err}
 
 
-def run_main(argv, server_csv=False):
+def run_main(argv, server_csv=False, keep_logs=None):
     """The CLI's main in-process, writing its files into a temporary
     directory; returns its summary (last stdout line) and log lines, and
-    with ``server_csv`` the server CSV's rows."""
+    with ``server_csv`` the server CSV's rows.  ``keep_logs``: a directory
+    the run's span CSVs are copied to."""
     import csv
 
     from mdgan_tpu_torch.cli import train
@@ -618,6 +647,8 @@ def run_main(argv, server_csv=False):
         rc = train.main(argv + out_dirs(Path(tmp)))
         rows = [list(csv.DictReader(io.StringIO(p.read_text()))) for p in
                 (Path(tmp) / "log_dir").glob("*.server.logs.csv")] if server_csv else None
+        if keep_logs is not None and rc == 0:
+            shutil.copytree(Path(tmp) / "log_dir", keep_logs)
     require(rc == 0, f"train.main returned {rc}")
     lines = buf.getvalue().strip().splitlines()
     out = json.loads(lines[-1]), [json.loads(ln) for ln in lines[:-1]]
@@ -650,12 +681,13 @@ def cli_chunks(rounds: int, swap_interval: int, log_interval: int, chunk: int,
     return out
 
 
-def phase_mdgan(rounds: int = 20):
+def phase_mdgan(keep: Path, rounds: int = 20):
     """The headline config through the CLI, float32 with the default chunk
     size, then bfloat16 with chunks of 4: one sampling launch per chunk; then
     float32 with bfloat16 Adam moments and the straggler policy at rate 0.3:
     every Adam launch the bf16-moment kernel, and the server CSV's
-    ``n_feedbacks`` column in [1, 8]."""
+    ``n_feedbacks`` column in [1, 8].  The float32 run's span CSVs are kept
+    under ``keep`` for the ``tools`` phase."""
     from mdgan_tpu_torch.ops import adam, sampling
 
     base = ["--mode", "mdgan", "--dataset", "CIFAR10", "--num_workers", "8",
@@ -670,7 +702,8 @@ def phase_mdgan(rounds: int = 20):
             ("bf16_moments_straggler", ["--compute_dtype", "float32", "--moment_dtype",
                                         "bfloat16", "--straggler_rate", "0.3"], 100)):
         summary, logs, rows = run_main(base + extra + ["--chunk_size", str(chunk)],
-                                       server_csv=True)
+                                       server_csv=True,
+                                       keep_logs=keep if name == "float32" else None)
         now = (adam.adam_update.launches, adam.adam_update.launches_bf16m,
                sampling.sample_normalize.launches)
         launched = tuple(a - b for a, b in zip(now, prev))
@@ -841,7 +874,7 @@ SPAN_COLUMNS = {  # the JAX package's CSV headers (mdgan_tpu/obs/spans.py:44, :7
 }
 
 
-def phase_trainer():
+def phase_trainer(keep: Path):
     """Both trainers end to end at full width in a temporary directory, with
     cadences of a few rounds: the span CSVs carry the JAX columns, FID/IS are
     finite, and a run of 8 rounds equals 4 rounds plus --resume for 4, bit for
@@ -850,7 +883,9 @@ def phase_trainer():
     ``torch.use_deterministic_algorithms(True)``; that each run repeats
     without it is reported, not required.  Also times the Inception forward
     on 5 and 256 images, the 5-sample and 256-image evals, and one
-    checkpoint save of the headline MD-GAN state."""
+    checkpoint save of the headline MD-GAN state.  The MD-GAN run's
+    checkpoints and weight exports are kept under ``keep`` for the ``tools``
+    phase."""
     import torch
 
     from mdgan_tpu_torch.cli import train as cli
@@ -916,6 +951,9 @@ def phase_trainer():
             require(len(csvs) == want, f"trainer {mode}: csv files {sorted(csvs)}")
             files = sorted(str(p.relative_to(root / mode / "full"))
                            for p in (root / mode / "full").rglob("*") if p.is_file())
+            if mode == "mdgan":
+                for sub in ("checkpoint_dir", "weights_dir"):
+                    shutil.copytree(root / mode / "full" / sub, keep / sub)
             out[mode] = {"evals": summary["evals"], "csv_rows": csvs, "files": files,
                          "resumed_bit_identical": True, "repeats_without_deterministic": repeats,
                          "launches": launched, "feature_source": summary["feature_source"]}
@@ -990,6 +1028,385 @@ def _eval_and_checkpoint_times():
         out["checkpoint_restore_s"] = time.perf_counter() - t
         mgr.close()
     return out
+
+
+# --- tools: the native data path, --download, generate, convert_weights, analyze
+
+
+def _png_size(path: Path):
+    """(width, height) from a PNG's IHDR (the card's machine has no PIL)."""
+    head = path.read_bytes()[:24]
+    require(head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR", f"{path}: not a PNG")
+    return int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big")
+
+
+def _write_cifar_bin(directory: Path, images, labels, per_file: int = 10000):
+    """The CIFAR-10 train split in its binary layout: 5 files of ``per_file``
+    records, [label byte][3,072 pixel bytes, CHW]."""
+    import numpy as np
+
+    directory.mkdir(parents=True)
+    chw = images.transpose(0, 3, 1, 2).reshape(len(images), -1)
+    recs = np.concatenate([labels.astype(np.uint8)[:, None], chw], axis=1)
+    for i in range(5):
+        (directory / f"data_batch_{i + 1}.bin").write_bytes(
+            recs[i * per_file:(i + 1) * per_file].tobytes())
+
+
+def _idx(arr) -> bytes:
+    """A uint8 array in MNIST's idx layout."""
+    head = (0x0800 | arr.ndim).to_bytes(4, "big") + b"".join(
+        d.to_bytes(4, "big") for d in arr.shape)
+    return head + arr.astype("uint8").tobytes()
+
+
+def _idx_gz(arr) -> bytes:
+    """An array in MNIST's idx layout, gzipped."""
+    import gzip
+
+    return gzip.compress(_idx(arr), compresslevel=1)
+
+
+def _alternated(reps: int, **fns):
+    """Host seconds of each function over ``reps`` rounds, called in turn
+    (the first and the second alternate which goes first), and the last
+    result of each."""
+    seconds = {name: [] for name in fns}
+    results = {}
+    for rep in range(reps):
+        order = list(fns) if rep % 2 == 0 else list(fns)[::-1]
+        for name in order:
+            t = time.perf_counter()
+            results[name] = fns[name]()
+            seconds[name].append(time.perf_counter() - t)
+    return seconds, results
+
+
+def _timed_pair(reps: int, what: str, want, native_fn, numpy_fn):
+    """``native_fn`` against ``numpy_fn``, alternated: each must return
+    ``want`` byte for byte; host seconds of each (every run, and the
+    median)."""
+    import numpy as np
+
+    seconds, results = _alternated(reps, native=native_fn, numpy=numpy_fn)
+    for name, got in results.items():
+        require(got is not None and len(got) == len(want)
+                and all(np.array_equal(a, b) for a, b in zip(got, want)),
+                f"tools: {what} ({name}) differs")
+    return {**{f"{k}_s": float(np.median(v)) for k, v in seconds.items()},
+            **{f"{k}_runs_s": v for k, v in seconds.items()}}
+
+
+def _download_sources(src: Path):
+    """MNIST's four idx ``.gz`` files (8,000 train and 1,000 test images of
+    the synthetic stand-in) and a ``cifar-10-python.tar.gz`` of pickle
+    batches (1,000 records each) under ``src``; returns their sha256
+    checksums."""
+    import hashlib
+    import pickle
+    import tarfile
+
+    from mdgan_tpu_torch.data import builtin, download
+
+    src.mkdir(parents=True)
+    sums = {}
+    for stem, n in (("train", 8000), ("t10k", 1000)):
+        images, labels = builtin.synthesize((28, 28, 1), n, seed=28 + n)
+        for kind, arr in (("images-idx3", images[..., 0]), ("labels-idx1", labels)):
+            name = f"{stem}-{kind}-ubyte.gz"
+            (src / name).write_bytes(_idx_gz(arr))
+    for name, _ in download.MNIST_FILES:
+        sums[name] = "sha256:" + hashlib.sha256((src / name).read_bytes()).hexdigest()
+    images, labels = builtin.synthesize((32, 32, 3), 6000, seed=7)
+    archive = src / download.CIFAR10_ARCHIVE[0]
+    with tarfile.open(archive, "w:gz", compresslevel=1) as tf:
+        names = [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]
+        for i, name in enumerate(names):
+            part = slice(i * 1000, (i + 1) * 1000)
+            payload = pickle.dumps({b"data": images[part].transpose(0, 3, 1, 2).reshape(1000, -1),
+                                    b"labels": [int(v) for v in labels[part]]})
+            info = tarfile.TarInfo(f"cifar-10-batches-py/{name}")
+            info.size = len(payload)
+            tf.addfile(info, io.BytesIO(payload))
+    sums["cifar10"] = "sha256:" + hashlib.sha256(archive.read_bytes()).hexdigest()
+    return sums
+
+
+@contextlib.contextmanager
+def _file_urls_only():
+    """Fetches from anything but a file:// source fail, so no run of this
+    phase can reach a network."""
+    import urllib.request
+
+    real = urllib.request.urlopen
+
+    def urlopen(url, *a, **k):
+        if not str(getattr(url, "full_url", url)).startswith("file://"):
+            raise SmokeFailure(f"tools: a fetch of {url} (only file:// sources here)")
+        return real(url, *a, **k)
+
+    urllib.request.urlopen = urlopen
+    try:
+        yield
+    finally:
+        urllib.request.urlopen = real
+
+
+def _tools_downloads(root: Path):
+    """(d): --download offline, from file:// sources with their checksums;
+    corrupted copies rejected with nothing left behind."""
+    from mdgan_tpu_torch.data import builtin, download
+
+    src = root / "src"
+    sums = _download_sources(src)
+    data_dir = root / "data"
+    mnist = download.download_mnist(str(data_dir), base_url=src.as_uri(), checksums=sums)
+    require(sorted(p.name for p in mnist.iterdir()) == sorted(n for n, _ in download.MNIST_FILES),
+            f"download_mnist left {sorted(p.name for p in mnist.iterdir())}")
+    cifar = download.download_cifar10(str(data_dir), base_url=src.as_uri(),
+                                      checksum=sums["cifar10"])
+    loaded = {"mnist": builtin.load_mnist(str(data_dir), fallback="error")[0].shape,
+              "cifar10": builtin.load_cifar10(str(data_dir), fallback="error")[0].shape}
+    require(loaded == {"mnist": (8000, 28, 28, 1), "cifar10": (5000, 32, 32, 3)},
+            f"downloaded data loads as {loaded}")
+    require(not list(cifar.parent.glob(".extract.*")) and not list(cifar.parent.glob("*.part*")),
+            "download_cifar10 left its staging files")
+    bad_src, bad = root / "bad_src", root / "bad"
+    shutil.copytree(src, bad_src)
+    for name in ("train-images-idx3-ubyte.gz", download.CIFAR10_ARCHIVE[0]):
+        raw = bytearray((bad_src / name).read_bytes())
+        raw[len(raw) // 2] ^= 0xFF
+        (bad_src / name).write_bytes(bytes(raw))
+    rejected = []
+    for fetch in (lambda: download.download_mnist(str(bad), base_url=bad_src.as_uri(),
+                                                  checksums=sums),
+                  lambda: download.download_cifar10(str(bad), base_url=bad_src.as_uri(),
+                                                    checksum=sums["cifar10"])):
+        try:
+            fetch()
+        except ValueError as err:
+            rejected.append("checksum mismatch" in str(err))
+    left = sorted(str(p.relative_to(bad)) for p in bad.rglob("*") if p.is_file())
+    require(rejected == [True, True] and not left,
+            f"corrupted copies: rejected {rejected}, left {left}")
+    return data_dir, {"mnist_files": sorted(p.name for p in mnist.iterdir()),
+                      "cifar10_batches": sorted(p.name for p in cifar.iterdir()),
+                      "loaded_shapes": {k: list(v) for k, v in loaded.items()},
+                      "corrupt_rejected": True, "left_after_rejection": left}
+
+
+def _tools_cli(argv, shape, swap_interval, log_interval, rounds, n=8):
+    """The CLI on the card: finite losses, 2 Adam launches a round, the
+    sampling launches of its chunks; returns (summary, launches)."""
+    from mdgan_tpu_torch.ops import adam, sampling
+
+    adam.adam_update.launches = adam.adam_update.launches_bf16m = 0
+    sampling.sample_normalize.launches = 0
+    summary, _ = run_main(argv)
+    launched = {"adam": adam.adam_update.launches, "adam_bf16m": adam.adam_update.launches_bf16m,
+                "sampling": sampling.sample_normalize.launches}
+    chunks = cli_chunks(rounds, swap_interval, log_interval, 100)
+    want = {"adam": 2 * rounds, "adam_bf16m": 0,
+            "sampling": sampling_launches(chunks, n, shape)}
+    require(summary["all_finite"], f"tools CLI {argv}: non-finite losses")
+    require(launched == want, f"tools CLI {argv}: launches {launched}, want {want} "
+                              f"(chunks {chunks})")
+    return summary, launched
+
+
+def _tools_generate(keep: Path, out: Path):
+    """(f): cli.generate from the trainer phase's checkpoint (64 samples on
+    the card) and from a weights export; with the same latents and TF32 off
+    the card's images against the CPU's; a filmstrip over the exports."""
+    import torch
+
+    from mdgan_tpu_torch.cli import generate
+    from mdgan_tpu_torch.core.registry import get as get_spec
+
+    ckpt_dir = keep / "checkpoint_dir" / "mdgan.8.CIFAR10"
+    weights = keep / "weights_dir"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rc = generate.main(["--dataset", "CIFAR10", "--checkpoint", str(ckpt_dir), "--num", "64",
+                            "--out", str(out / "checkpoint.png")])
+        seconds = time.perf_counter() - t
+        rc_w = generate.main(["--dataset", "CIFAR10", "--weights",
+                              str(weights / "generator_final.npz"), "--num", "64",
+                              "--out", str(out / "weights.png")])
+        exports = sorted(weights.glob("generator_*.npz"))
+        rc_f = generate.main(["--dataset", "CIFAR10", "--weights_glob",
+                              str(weights / "generator_*.npz"), "--filmstrip",
+                              str(out / "strip.png")])
+    require((rc, rc_w, rc_f) == (0, 0, 0), f"generate returned {(rc, rc_w, rc_f)}")
+    require(_png_size(out / "checkpoint.png") == _png_size(out / "weights.png") == (320, 224),
+            f"generate grids {_png_size(out / 'checkpoint.png')}")
+    require(_png_size(out / "strip.png") == (32 * len(exports), 32),
+            f"filmstrip {_png_size(out / 'strip.png')} over {len(exports)} exports")
+    spec = get_spec("CIFAR10")
+    with contextlib.redirect_stdout(io.StringIO()):
+        params, stats = generate.load_from_checkpoint(str(ckpt_dir), None)
+    z = generate.latents(spec, 64, 0, "cpu")
+    with no_tf32():
+        card = generate.sample_images(spec, params, stats, 64, 0, "cuda", z=z)
+    cpu = generate.sample_images(spec, params, stats, 64, 0, "cpu", z=z)
+    err = float(abs(card - cpu).max())
+    require(card.shape == (64, 32, 32, 3) and err <= 1e-4,
+            f"generate: card vs CPU max abs err {err} (shape {card.shape})")
+    return {"seconds_64_samples": seconds, "card_vs_cpu_max_abs_err": err,
+            "log": buf.getvalue().strip().splitlines(), "filmstrip_frames": len(exports)}
+
+
+def _tools_convert(root: Path):
+    """(g): cli.convert_weights npz -> pt -> npz on each (dataset, role) pair
+    from the port's init exports, bit-exact."""
+    import numpy as np
+
+    from mdgan_tpu_torch.cli import convert_weights
+    from mdgan_tpu_torch.core import prng
+    from mdgan_tpu_torch.core.registry import get as get_spec
+    from mdgan_tpu_torch.models import from_jax, layers
+    from mdgan_tpu_torch.utils import checkpoint
+
+    out = {}
+    for dataset in ("CIFAR10", "CelebA", "MNIST"):
+        spec = get_spec(dataset)
+        for role in ("generator", "discriminator"):
+            module = spec.make_generator() if role == "generator" else spec.make_discriminator()
+            (spec.init_weights or layers.dcgan_init_)(module, prng.generator(1, prng.INIT_G))
+            stem = root / f"{dataset}_{role}"
+            checkpoint.save_weights_only(f"{stem}.npz", *from_jax.export(module))
+            base = ["--dataset", dataset, "--role", role]
+            with contextlib.redirect_stdout(io.StringIO()):
+                rcs = (convert_weights.main(base + ["--input", f"{stem}.npz",
+                                                    "--out", f"{stem}.pt"]),
+                       convert_weights.main(base + ["--input", f"{stem}.pt",
+                                                    "--out", f"{stem}.back.npz"]))
+            with np.load(f"{stem}.npz") as a, np.load(f"{stem}.back.npz") as b:
+                same = sorted(a.files) == sorted(b.files) and all(
+                    a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a.files)
+                keys = len(a.files)
+            require(rcs == (None, None) and same,
+                    f"convert_weights {dataset} {role}: round trip not bit-exact (rc {rcs})")
+            out[f"{dataset}/{role}"] = keys
+    return out
+
+
+def _tools_analyze(keep_logs: Path, rounds: int):
+    """(h): cli.analyze --json on the mdgan phase's server and worker CSVs."""
+    from mdgan_tpu_torch.cli import analyze
+
+    csvs = sorted(str(p) for p in keep_logs.glob("*.csv"))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = analyze.main(["--json"] + csvs)
+    reports = {Path(r["file"]).name: r for r in json.loads(buf.getvalue())}
+    server = [r for n, r in reports.items() if ".server." in n]
+    workers = [r for n, r in reports.items() if ".worker." in n]
+    require(rc == 0 and len(server) == 1 and len(workers) == 8, f"analyze: {sorted(reports)}")
+    s = server[0]
+    require(s.get("rounds") == rounds and math.isfinite(s.get("rounds_per_sec", math.nan))
+            and {"epoch", "epoch_calculation", "fid"} <= set(s["ops"]),
+            f"analyze server report {s}")
+    require(all(w["rows"] == rounds and w.get("rounds") == rounds
+                and {"epoch", "calc_gradients"} <= set(w["ops"]) for w in workers),
+            f"analyze worker reports {[(w['rows'], sorted(w['ops'])) for w in workers]}")
+    return {"server": {k: s[k] for k in ("rows", "rounds", "wall_s", "rounds_per_sec")},
+            "server_ops": sorted(s["ops"]), "workers": len(workers)}
+
+
+def phase_tools(keep: Path, rounds: int = 10, mnist_rounds: int = 5):
+    """The native host library (required), the CIFAR-10 ``.bin`` decode of
+    the full train split against its numpy version, the headline CLI on
+    that ``.bin`` folder, ``--download`` offline and an MNIST run after it,
+    the threaded shard gather against numpy at FFHQ128's 8,000 stand-in
+    examples, ``cli.generate``, ``cli.convert_weights`` on the six (dataset,
+    role) pairs and ``cli.analyze`` on the mdgan phase's CSVs."""
+    import numpy as np
+
+    from mdgan_tpu_torch.data import builtin, native, partitioner
+
+    out = {"cpu_count": os.cpu_count()}
+    # (a) the library (built from the checkout in the build phase, which
+    # fails with g++'s output where it does not build) must load
+    require(not os.environ.get("MDGAN_TPU_NO_NATIVE"), "tools: MDGAN_TPU_NO_NATIVE is set")
+    require(native.available(), "tools: the native library did not load")
+    out["library"] = native.library_path().name
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp, _file_urls_only():
+        root = Path(tmp)
+        # (b) the full train split in the binary layout, and MNIST's in raw
+        # idx files, each decoded natively and in numpy, alternated
+        images, labels = builtin.synthesize((32, 32, 3), 50000, seed=32)
+        bin_dir = root / "bin" / "cifar10" / "cifar-10-batches-bin"
+        _write_cifar_bin(bin_dir, images, labels)
+        out["cifar10_bin_decode"] = {"bytes": 5 * 10000 * 3073, **_timed_pair(
+            3, ".bin decode", (images, labels),
+            lambda: native.decode_cifar10_bin(bin_dir, 50000),
+            lambda: native.decode_cifar10_bin_plain(bin_dir, 50000))}
+        mnist, mnist_labels = builtin.synthesize((28, 28, 1), 60000, seed=28)
+        raw_dir = root / "raw" / "mnist"
+        raw_dir.mkdir(parents=True)
+        ipath, lpath = raw_dir / "train-images-idx3-ubyte", raw_dir / "train-labels-idx1-ubyte"
+        ipath.write_bytes(_idx(mnist[..., 0]))
+        lpath.write_bytes(_idx(mnist_labels))
+        out["mnist_idx_decode"] = {"bytes": ipath.stat().st_size + lpath.stat().st_size,
+                                   **_timed_pair(
+            3, "raw idx decode", (mnist, mnist_labels),
+            lambda: native.decode_mnist(ipath, lpath, 60000),
+            lambda: native.decode_mnist_plain(ipath, lpath, 60000))}
+        calls = native.decode_mnist.native_calls
+        loaded = builtin.load_mnist(str(root / "raw"))
+        require(native.decode_mnist.native_calls == calls + 1
+                and np.array_equal(loaded[0], mnist) and np.array_equal(loaded[1], mnist_labels),
+                "tools: load_mnist on raw idx files did not decode through the native library")
+        del mnist, mnist_labels, loaded
+        # (c) the headline CLI on the .bin folder
+        calls = native.decode_cifar10_bin.native_calls, native.gather_rows.native_calls
+        summary, launches["mdgan_cifar10_bin"] = _tools_cli(
+            ["--mode", "mdgan", "--dataset", "CIFAR10", "--num_workers", "8", "--batch_size",
+             "10", "--epochs", str(rounds), "--swap_interval", "5", "--log_interval", "5",
+             "--compute_dtype", "float32", "--data_dir", str(root / "bin")],
+            (32, 32, 3), 5, 5, rounds)
+        require((native.decode_cifar10_bin.native_calls, native.gather_rows.native_calls)
+                == (calls[0] + 1, calls[1] + 1),
+                "tools: the .bin run did not decode and shard through the native library")
+        out["mdgan_cifar10_bin"] = {k: summary[k] for k in (
+            "rounds", "wall_time_s", "final_mean_d_loss", "evals")}
+        # (d) --download offline, then MNIST after --download
+        t = time.perf_counter()
+        data_dir, out["download"] = _tools_downloads(root / "dl")
+        out["download"]["seconds"] = time.perf_counter() - t
+        summary, launches["mnist_download"] = _tools_cli(
+            ["--mode", "mdgan", "--dataset", "MNIST", "--num_workers", "8", "--batch_size",
+             "10", "--epochs", str(mnist_rounds), "--swap_interval", "5", "--log_interval",
+             "5", "--compute_dtype", "float32", "--data_dir", str(data_dir), "--download"],
+            (28, 28, 1), 5, 5, mnist_rounds)
+        out["mnist_download"] = {k: summary[k] for k in ("rounds", "wall_time_s",
+                                                        "final_mean_d_loss")}
+        # (e) shard_data through the threaded gather, then the gather against
+        # numpy on the same indices, alternated
+        data, _ = builtin.load_ffhq128(str(root / "none"), max_examples=8000)
+        calls = native.gather_rows.native_calls
+        shards, idx = partitioner.shard_data(data, 8, iid=True, seed=0)
+        flat = idx.reshape(-1)
+        require(data.nbytes >= partitioner.NATIVE_GATHER_BYTES
+                and native.gather_rows.native_calls == calls + 1,
+                "tools: shard_data did not gather through the native library")
+        ref = native.gather_rows_plain(data, flat).reshape(shards.shape)
+        require(np.array_equal(shards, ref), "tools: threaded shard gather differs from numpy")
+        out["shard_gather"] = {"bytes": int(data.nbytes), **_timed_pair(
+            3, "row gather", (ref.reshape(len(flat), *data.shape[1:]),),
+            lambda: (native.gather_rows(data, flat),),
+            lambda: (native.gather_rows_plain(data, flat),))}
+        del data, shards, ref, images, labels
+        # (f), (g), (h)
+        out["generate"] = _tools_generate(keep, root)
+        out["convert_weights"] = _tools_convert(root)
+        out["analyze"] = _tools_analyze(keep / "mdgan_logs", 20)
+    out["launches"] = launches
+    return out, launches
 
 
 def profile_rounds(eng, shards, sampler, warm: int, timed: int, rounds: int):
@@ -1282,8 +1699,17 @@ def main() -> int:
     log = path.with_suffix(".log")
     ptxas = [ln.strip() for ln in log.read_text().splitlines()
              if "registers" in ln or "spill" in ln] if log.is_file() else []
-    emit({"phase": "build", "seconds": time.perf_counter() - t, "built": built,
-          "library": path.name, "ptxas": ptxas})
+    kernels_s = time.perf_counter() - t
+    # the host library of data/native, built here before any phase loads data
+    from mdgan_tpu_torch.data import native
+
+    t = time.perf_counter()
+    host_built = not native.library_path().is_file()
+    host_path = native.build()
+    host_library = {"library": host_path.name, "built": host_built,
+                    "seconds": time.perf_counter() - t}
+    emit({"phase": "build", "seconds": kernels_s, "built": built,
+          "library": path.name, "ptxas": ptxas, "host_library": host_library})
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1302,8 +1728,12 @@ def main() -> int:
     emit({"phase": "round", "seconds": time.perf_counter() - t, **rec})
 
     torch.backends.cudnn.allow_tf32 = True  # the library default, as a user runs
+    # what the tools phase reads of earlier phases: the mdgan phase's span
+    # CSVs, the trainer phase's checkpoints and exports
+    keep_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    keep = Path(keep_dir.name)
     t = time.perf_counter()
-    runs, mdgan_launches = phase_mdgan()
+    runs, mdgan_launches = phase_mdgan(keep / "mdgan_logs")
     emit({"phase": "mdgan", "seconds": time.perf_counter() - t,
           "card": smi, "runs": runs})
 
@@ -1319,8 +1749,13 @@ def main() -> int:
     emit({"phase": "standalone", "seconds": time.perf_counter() - t, "card": smi, **rec})
 
     t = time.perf_counter()
-    rec = phase_trainer()
+    rec = phase_trainer(keep)
     emit({"phase": "trainer", "seconds": time.perf_counter() - t, "card": smi, **rec})
+
+    t = time.perf_counter()
+    rec, tools_launches = phase_tools(keep)
+    keep_dir.cleanup()
+    emit({"phase": "tools", "seconds": time.perf_counter() - t, "card": smi, **rec})
 
     t = time.perf_counter()
     fam_runs = phase_families()
@@ -1336,18 +1771,23 @@ def main() -> int:
              "mdgan_bf16_moments": mdgan_launches["bf16_moments_straggler"],
              "standalone": standalone_launches,
              "distributed": {k: sum(c[k] for c in dist_rec["launches_per_rank"])
-                             for k in ("adam", "adam_bf16m", "sampling")}}
+                             for k in ("adam", "adam_bf16m", "sampling")},
+             **tools_launches}
     sa_samp = samp_rec["timed"]["standalone_T100"]
     main_adam = {k: adam_rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     main_samp = {k: samp_rec[k] for k in ("ms", "plain_ms", "bound_ms")}
+    mnist_samp = samp_rec["families"]["MNIST"]["mdgan"]
     by_path = {
         "adam": {"mdgan": dict(main_adam), "standalone": adam_rec["standalone"],
-                 "distributed": dict(main_adam)},
+                 "distributed": dict(main_adam), "mdgan_cifar10_bin": dict(main_adam),
+                 "mnist_download": dict(adam_rec["families"]["MNIST"]["mdgan"])},
         "adam_bf16m": {"mdgan_bf16_moments": {k: bf16m_rec[k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms")}},
         "sampling": {"mdgan": dict(main_samp), "mdgan_bf16_moments": dict(main_samp),
-                     "distributed": dict(main_samp),
-                     "standalone": {k: sa_samp[k] for k in ("ms", "plain_ms", "bound_ms")}},
+                     "distributed": dict(main_samp), "mdgan_cifar10_bin": dict(main_samp),
+                     "standalone": {k: sa_samp[k] for k in ("ms", "plain_ms", "bound_ms")},
+                     "mnist_download": {k: mnist_samp[k] for k in (
+                         "ms", "plain_ms", "bound_ms", "rounds_per_launch")}},
     }
     # each family's paths: the kernels' times at that path's shapes (Adam a
     # round or a local epoch, sampling a launch), launches from its CLI runs

@@ -18,10 +18,12 @@ MD-GAN run shards its discriminators over the ranks, one process a GPU.
 Layout (mirrors ``mdgan_tpu``):
     core/      config dataclasses, dataset registry, random lanes, device choice,
                the rank layout and the process group
-    data/      MNIST / CIFAR-10 / CelebA / FFHQ-128 / synthetic loaders,
-               partitioner, sampler
+    data/      MNIST / CIFAR-10 / CelebA / FFHQ-128 / synthetic loaders (a C++
+               host decoder and threaded gather in native/), partitioner,
+               sampler, checksum-verified downloads
     models/    DCGAN-32, MLP-GAN, DCGAN-64, StyleGAN2, flax-convention
-               BatchNorm, JAX weight import/export
+               BatchNorm, JAX weight import/export, reference torch
+               checkpoint interop
     ops/       losses and the CUDA kernel wrappers (+ their build)
     engine/    arena-backed network state, the MD-GAN and standalone rounds,
                the trainers (host loop, evals, exports, checkpoints)
@@ -29,7 +31,8 @@ Layout (mirrors ``mdgan_tpu``):
     obs/       span CSVs, image grids, host monitor
     parallel/  discriminator swaps across ranks (gather and pair)
     utils/     checkpoints and weight exports
-    cli/       the train entry point, Inception weight conversion
+    cli/       train, generate, convert_weights, analyze, Inception weight
+               conversion
 
 This package imports neither JAX nor any module of ``mdgan_tpu``.
 """

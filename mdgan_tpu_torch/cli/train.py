@@ -33,6 +33,9 @@ Flags that name TPU machinery (``--scan_unroll``, ``--no_pallas``,
 a CUDA device Adam and sampling always run through the CUDA kernels.
 ``--profile_dir`` writes a ``torch.profiler`` trace of the first chunks
 (``trace.json``); ``--host_metrics`` samples host cpu/mem/net to a CSV.
+``--download`` fetches MNIST or CIFAR-10 into ``--data_dir`` first,
+checksum-verified (``data/download.py``); CIFAR-10 is also read from its
+binary batches, ``<data_dir>/cifar10/cifar-10-batches-bin/data_batch_*.bin``.
 """
 
 from __future__ import annotations
@@ -105,7 +108,6 @@ def build_parser() -> argparse.ArgumentParser:
 _NOT_PORTED = [
     (lambda a: a.num_replicas > 1 or a.num_tensor > 1,
      "--num_replicas/--num_tensor > 1", "ROADMAP.md A.8b"),
-    (lambda a: a.download, "--download", "ROADMAP.md A.9"),
 ]
 # chunks of the run that --profile_dir traces, after one warm-up chunk
 _PROFILED_CHUNKS = 3
@@ -174,6 +176,10 @@ def main(argv=None) -> int:
 
 def _run(args: argparse.Namespace) -> int:
     cfg = config_from_args(args)
+    if args.download:  # every rank: the fetch and the extraction are atomic
+        from mdgan_tpu_torch.data.download import ensure_dataset
+
+        ensure_dataset(args.dataset, args.data_dir)
     from mdgan_tpu_torch.engine.train_loop import MDGANTrainer, StandaloneTrainer
 
     monitor = None

@@ -2,16 +2,19 @@
 procedural Synthetic32 / SyntheticMNIST.
 
 Copies of ``mdgan_tpu/data/builtin.py:36-77`` (:func:`synthesize`),
-``:83-281`` (the idx reader and :func:`load_mnist`'s Python path,
-:func:`load_cifar10`'s python-pickle path, :func:`load_celeba`,
-:func:`load_ffhq128`, each with its synthetic fallback) and the six registry
-entries.  Output bytes are identical to the JAX package's (tests hold them
-equal).  Images are uint8 NHWC; normalization to [-1, 1] happens on the
-device at sample time.
+``:83-281`` (the idx reader and :func:`load_mnist`, :func:`load_cifar10`,
+:func:`load_celeba`, :func:`load_ffhq128`, each with its synthetic fallback)
+and the six registry entries.  Output bytes are identical to the JAX
+package's (tests hold them equal).  Images are uint8 NHWC; normalization to
+[-1, 1] happens on the device at sample time.
 
-Not copied: the native decoders of ``mdgan_tpu/data/native`` (ROADMAP.md
-A.9).  For raw MNIST idx files the JAX package's native decoder yields the
-same bytes as the Python path used here; a CIFAR-10 ``.bin`` folder raises.
+Raw MNIST idx files and CIFAR-10's binary batches (``cifar-10-batches-bin``)
+go through the native decoders of ``data/native``, as in the JAX package.
+One deliberate difference (ROADMAP.md C.4): where a ``.bin`` folder is
+present and the library is unavailable, the port decodes it with the plain
+numpy version, and where its files are missing or corrupt it raises; the JAX
+package falls through to the pickle batches and from there to synthetic
+data.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from mdgan_tpu_torch.core import registry
+from mdgan_tpu_torch.data import native
 from mdgan_tpu_torch.models import dcgan32, dcgan64, layers, mlp_gan, stylegan2
 
 
@@ -89,7 +93,8 @@ def _idx_candidates(stem: str, kind: str) -> Tuple[str, ...]:
 def load_mnist(data_dir: str, split: str = "train", fallback: str = "synthetic",
                max_examples: Optional[int] = None):
     """MNIST from idx files (raw or ``.gz``, any of the usual layouts), else
-    synthetic (``builtin.py:89-129``)."""
+    synthetic (``builtin.py:89-129``).  Raw files go through the native
+    decoder, and through ``_read_idx`` where it returns None."""
     stem = "train" if split == "train" else "t10k"
     img = _find(data_dir, *_idx_candidates(stem, "images-idx3-ubyte"))
     if img is None:
@@ -98,6 +103,12 @@ def load_mnist(data_dir: str, split: str = "train", fallback: str = "synthetic",
         n = max_examples or (60000 if split == "train" else 10000)
         return synthesize((28, 28, 1), n, seed=28)
     lbl = _find(data_dir, *_idx_candidates(stem, "labels-idx1-ubyte"))
+    if img.suffix != ".gz" and not (lbl and lbl.suffix == ".gz"):
+        # the native decoder reads raw idx only; any gzipped piece goes to
+        # _read_idx so labels are never silently dropped
+        decoded = native.decode_mnist(img, lbl, max_examples or 60000)
+        if decoded is not None:
+            return decoded
     data = _read_idx(img)[..., None]  # (n, 28, 28, 1)
     labels = _read_idx(lbl).astype(np.int64) if lbl else np.zeros(len(data), np.int64)
     if max_examples:
@@ -107,13 +118,15 @@ def load_mnist(data_dir: str, split: str = "train", fallback: str = "synthetic",
 
 def load_cifar10(data_dir: str, split: str = "train", fallback: str = "synthetic",
                  max_examples: Optional[int] = None):
-    """CIFAR-10 from the python pickle batches, else synthetic."""
+    """CIFAR-10: the binary batches through the native decoder (its numpy
+    version where the library is unavailable), the python pickle batches,
+    else synthetic (``builtin.py:131-158``).  A binary folder whose files
+    are missing or corrupt raises, never falls through."""
+    bin_dir = _find(data_dir, "cifar10/cifar-10-batches-bin", "cifar-10-batches-bin")
+    if bin_dir is not None:
+        return _load_cifar10_bin(bin_dir, split, max_examples)
     base = _find(data_dir, "cifar10/cifar-10-batches-py", "cifar-10-batches-py")
     if base is None:
-        if _find(data_dir, "cifar10/cifar-10-batches-bin", "cifar-10-batches-bin"):
-            raise NotImplementedError(
-                "the CIFAR-10 binary-format decoder (mdgan_tpu/data/native) is "
-                "not ported yet (ROADMAP.md A.9); provide cifar-10-batches-py")
         if fallback != "synthetic":
             raise FileNotFoundError(f"CIFAR-10 raw files not found under {data_dir}")
         n = max_examples or (50000 if split == "train" else 10000)
@@ -131,6 +144,21 @@ def load_cifar10(data_dir: str, split: str = "train", fallback: str = "synthetic
     if max_examples:
         data, labels = data[:max_examples], labels[:max_examples]
     return np.ascontiguousarray(data), labels
+
+
+def _load_cifar10_bin(bin_dir: Path, split: str, max_examples: Optional[int]):
+    cap = max_examples or (50000 if split == "train" else 10000)
+    train = split == "train"
+    decode = (native.decode_cifar10_bin if native.available()
+              else native.decode_cifar10_bin_plain)
+    decoded = decode(bin_dir, cap, train=train)
+    if decoded is not None:
+        return decoded
+    for path in native.cifar10_bin_files(bin_dir, train):
+        if not path.is_file():
+            raise FileNotFoundError(f"CIFAR-10 binary batch {path} is missing")
+    raise ValueError(f"no whole {native.CIFAR_RECORD}-byte CIFAR-10 record in "
+                     f"{native.cifar10_bin_files(bin_dir, train)[0]}")
 
 
 def load_celeba(data_dir: str, split: str = "train", fallback: str = "synthetic",

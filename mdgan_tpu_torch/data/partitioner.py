@@ -1,10 +1,10 @@
 """Dataset partitioning across discriminator workers.
 
 Copy of ``mdgan_tpu/data/partitioner.py:40-85``, the equal-shard split
-the engine uses (numpy path only; the threaded native gather of
-``mdgan_tpu/data/native`` is not ported).  IID splits a seeded permutation
-into N chunks, non-IID splits ``arange(size)``; every shard is floored to
-``size // n`` examples so the shards stack.
+the engine uses.  IID splits a seeded permutation into N chunks, non-IID
+splits ``arange(size)``; every shard is floored to ``size // n`` examples so
+the shards stack.  Data of 64 MiB and more is gathered by the threaded
+native gather (``data/native``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -12,6 +12,11 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+
+from mdgan_tpu_torch.data import native
+
+# data at least this large is gathered by the threaded native gather
+NATIVE_GATHER_BYTES = 64 * 1024 * 1024
 
 
 def permutation(size: int, iid: bool, seed: int = 0) -> np.ndarray:
@@ -35,4 +40,9 @@ def shard_data(data: np.ndarray, n: int, iid: bool, seed: int = 0) -> Tuple[np.n
     """(shards, indices): shards is (n, S, *data.shape[1:]) with
     S = len(data) // n; indices the (n, S) map back into ``data``."""
     idx = split_indices_equal(len(data), n, iid, seed)
-    return data[idx.reshape(-1)].reshape(idx.shape + data.shape[1:]), idx
+    flat = idx.reshape(-1)
+    if data.nbytes >= NATIVE_GATHER_BYTES:
+        gathered = native.gather_rows(data, flat)
+        if gathered is not None:
+            return gathered.reshape(idx.shape + data.shape[1:]), idx
+    return data[flat].reshape(idx.shape + data.shape[1:]), idx

@@ -197,7 +197,7 @@ def _get(tree: Mapping, path: Tuple[str, ...]) -> np.ndarray:
     return np.asarray(node)
 
 
-def _to_port(a: np.ndarray, kind: str) -> np.ndarray:
+def to_port(a: np.ndarray, kind: str) -> np.ndarray:
     if kind == "conv":
         return a.transpose(3, 2, 0, 1)
     if kind == "convt":
@@ -209,7 +209,7 @@ def _to_port(a: np.ndarray, kind: str) -> np.ndarray:
     return a
 
 
-def _to_jax(a: np.ndarray, kind: str) -> np.ndarray:
+def to_jax(a: np.ndarray, kind: str) -> np.ndarray:
     if kind == "conv":
         return a.transpose(2, 3, 1, 0)
     if kind == "convt":
@@ -224,7 +224,7 @@ def _to_jax(a: np.ndarray, kind: str) -> np.ndarray:
 def params_to_port(tree: Mapping, role) -> Dict[str, np.ndarray]:
     """A params-shaped tree (params, or an Adam moment) -> port parameter
     names and layouts."""
-    return {name: np.array(_to_port(_get(tree, path), kind), np.float32, order="C")
+    return {name: np.array(to_port(_get(tree, path), kind), np.float32, order="C")
             for name, path, kind in entries(role) if kind != "stat"}
 
 
@@ -243,7 +243,7 @@ def params_to_jax(named: Mapping[str, np.ndarray], role) -> Dict:
         for p in path[:-1]:
             node = node.setdefault(p, {})
         # np.ascontiguousarray would make a 0-d leaf 1-d
-        node[path[-1]] = np.array(_to_jax(np.asarray(named[name]), kind), order="C")
+        node[path[-1]] = np.array(to_jax(np.asarray(named[name]), kind), order="C")
     return out
 
 

@@ -12,25 +12,23 @@ minutes.  The library goes to ``build/`` at the repository root (ignored by
 git); its name carries a hash of the sources and flags, so a stale library is
 never loaded and a current one is reused; ptxas's resource report is kept
 beside it as ``.log``.  Builds take a file lock, so the ranks of a
-``torch.distributed`` run starting on a cold ``build/`` run one ``nvcc``.  Nothing is built or loaded until a
-wrapper first sees a CUDA tensor.
+``torch.distributed`` run starting on a cold ``build/`` run one ``nvcc``
+(``utils/build.py``, shared with the host library of ``data/native``).
+Nothing is built or loaded until a wrapper first sees a CUDA tensor.
 """
 
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
 import os
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 from typing import List, Optional
 
+from mdgan_tpu_torch.utils.build import BUILD_DIR, build_locked, hash_of
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("adam.cu", "sampling.cu")
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -74,11 +72,7 @@ def find_nvcc() -> Path:
 
 
 def source_hash(sources=SOURCES) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sources:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
-    return h.hexdigest()[:16]
+    return hash_of(NVCC_FLAGS, [CSRC / name for name in sources])
 
 
 def library_path(stem: str = "mdgan_kernels", sources=SOURCES) -> Path:
@@ -92,35 +86,8 @@ def command(nvcc: Path, out: Path, sources=SOURCES) -> List[str]:
 def build(stem: str = "mdgan_kernels", sources=SOURCES) -> Path:
     """Compile ``sources`` (names under ``csrc/``) into ``lib<stem>_<hash>.so``
     unless a current one exists; return its path."""
-    out = library_path(stem, sources)
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / f".{out.name}.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)  # another process may be building it
-        if not out.is_file():
-            _compile(out, sources)
-    return out
-
-
-def _compile(out: Path, sources) -> None:
-    nvcc = find_nvcc()
-    # compile to a private name, then rename: a concurrent or interrupted
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = command(nvcc, Path(tmp), sources)
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                               f"{proc.stdout}{proc.stderr}")
-        # ptxas -v: registers, shared memory and spills of each kernel
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    return build_locked(library_path(stem, sources),
+                        lambda tmp: command(find_nvcc(), tmp, sources))
 
 
 def lib() -> ctypes.CDLL:

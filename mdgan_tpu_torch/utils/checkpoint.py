@@ -140,8 +140,7 @@ class CheckpointManager:
             (self.directory / f"host_rng_{old}.json").unlink(missing_ok=True)
 
     def steps(self) -> list:
-        return sorted(int(m.group(1)) for p in self.directory.iterdir()
-                      if (m := _CKPT.fullmatch(p.name)))
+        return checkpoint_steps(self.directory)
 
     def latest_step(self) -> Optional[int]:
         self.wait_until_finished()
@@ -155,17 +154,10 @@ class CheckpointManager:
         ``d_rows``: the rows of the stacked discriminator leaves that
         ``state.d``'s copies take (a rank's workers; default all)."""
         step = step if step is not None else self.latest_step()
-        if step is None:
-            raise FileNotFoundError(f"no checkpoints under {self.directory}")
-        payload = torch.load(self.directory / f"ckpt_{step}.pt", map_location="cpu",
-                             weights_only=True)
-        if payload.get("format") != FORMAT:
-            raise ValueError(f"ckpt_{step}.pt: format {payload.get('format')!r}, "
-                             f"this reader knows {FORMAT}")
+        payload, step = load_payload(self.directory, step)
         for name in ("g", "d"):
             saved = payload["nets"][name]
-            trees = {k: unflatten({key: t.float().numpy() for key, t in saved[k].items()})
-                     for k in ("params", "batch_stats", "mu", "nu")}
+            trees = net_trees(saved, ("params", "batch_stats", "mu", "nu"))
             from_jax.load_net(getattr(state, name), trees["params"], trees["batch_stats"],
                               trees["mu"], trees["nu"], saved["count"],
                               rows=d_rows if name == "d" else None)
@@ -189,6 +181,35 @@ class CheckpointManager:
             if self._pool is not None:
                 self._pool.shutdown(wait=True)
                 self._pool = None
+
+
+def checkpoint_steps(directory) -> list:
+    """The steps of the ``ckpt_<step>.pt`` files in ``directory``, ascending."""
+    return sorted(int(m.group(1)) for p in Path(directory).iterdir()
+                  if (m := _CKPT.fullmatch(p.name)))
+
+
+def load_payload(directory, step: Optional[int] = None) -> Tuple[Dict, int]:
+    """Checkpoint ``step`` of ``directory`` (default: the latest) as saved,
+    read with ``weights_only=True``; returns (payload, step)."""
+    directory = Path(directory)
+    if step is None:
+        steps = checkpoint_steps(directory) if directory.is_dir() else []
+        step = steps[-1] if steps else None
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {directory}")
+    payload = torch.load(directory / f"ckpt_{step}.pt", map_location="cpu",
+                         weights_only=True)
+    if payload.get("format") != FORMAT:
+        raise ValueError(f"ckpt_{step}.pt: format {payload.get('format')!r}, "
+                         f"this reader knows {FORMAT}")
+    return payload, step
+
+
+def net_trees(saved: Mapping, keys: Sequence[str] = ("params", "batch_stats")) -> Dict:
+    """A saved network's leaves as nested float32 numpy trees under ``keys``."""
+    return {k: unflatten({key: t.float().numpy() for key, t in saved[k].items()})
+            for k in keys}
 
 
 def _atomic_write(path: Path, write) -> None:

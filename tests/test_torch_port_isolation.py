@@ -53,7 +53,8 @@ def test_port_imports_with_jax_and_mdgan_tpu_blocked():
                           cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     n_modules = len([p for p in PORT.rglob("*.py") if p.name != "__init__.py"])
-    n_subpackages = len(list(PORT.glob("*/__init__.py")))
+    # every subpackage, nested ones (data/native) included
+    n_subpackages = len([p for p in PORT.rglob("__init__.py") if p.parent != PORT])
     assert f"IMPORTED {n_modules + n_subpackages} BAD []" in proc.stdout, proc.stdout
 
 

@@ -469,16 +469,26 @@ def test_cli_chunk_size_changes_no_metric(capsys, monkeypatch, tmp_path, stub_in
 @pytest.mark.parametrize("flag", [["--swap_impl", "ppermute"], ["--straggler_rate", "0.1"],
                                   ["--moment_dtype", "bfloat16"], ["--num_replicas", "2"],
                                   ["--num_tensor", "2"], ["--download"]])
-def test_cli_waiting_features_raise(flag, tmp_path, stub_inception):
+def test_cli_waiting_features_raise(flag, tmp_path, stub_inception, monkeypatch):
     """The flags still waiting for a slice raise, naming their ROADMAP item.
     The ported ones run: bfloat16 moments and stragglers (ROADMAP A.6)
-    through a round, and the pair swap (A.8's workers axis), which needs one
-    worker a rank, raises JAX's ValueError at its first swap in one process."""
+    through a round, ``--download`` (A.9) after fetching the dataset into
+    ``--data_dir`` (the fetch is recorded here; the offline fetches are
+    ``tests/test_torch_port_tools.py``'s), and the pair swap (A.8's workers
+    axis), which needs one worker a rank, raises JAX's ValueError at its
+    first swap in one process."""
     argv = ["--epochs", "1", "--device", "cpu", "--num_workers", "2",
             "--max_examples", "40"] + flag + _dirs(tmp_path)
-    if flag[0] in ("--num_replicas", "--num_tensor", "--download"):
+    if flag[0] in ("--num_replicas", "--num_tensor"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(argv)
+    elif flag[0] == "--download":
+        from mdgan_tpu_torch.data import download
+
+        fetched = []
+        monkeypatch.setattr(download, "ensure_dataset", lambda *a: fetched.append(a))
+        assert cli.main(argv + ["--data_dir", str(tmp_path / "data")]) == 0
+        assert fetched == [("CIFAR10", str(tmp_path / "data"))]
     elif flag[0] == "--swap_impl":
         with pytest.raises(ValueError, match="one worker per rank"):
             cli.main(argv + ["--epochs", "2", "--swap_interval", "1"])

@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 (``chip_smoke.py --rank-program ...`` is one rank of the ``distributed``
-phase, started by the script itself.)  Phases, each printing one JSON line
+phase and ``chip_smoke.py --axes-program ...`` one of the ``axes`` phase,
+each started by the script itself.)  Phases, each printing one JSON line
 with its seconds:
 
   env      torch/CUDA versions and ``nvidia-smi`` name and power limit
@@ -51,6 +52,29 @@ with its seconds:
            bit-identical to the single-process run under deterministic
            algorithms; every rank's launch counts and its warm-round host
            time against the single-process engine's; prints W
+  axes     the replica and tensor axes: the headline config (CIFAR10,
+           N=8, b=10, DCGAN-32 at full width, float32, TF32 off,
+           deterministic algorithms) under ``torch.distributed.run`` in four
+           layouts: (R=2, T=1) on 2 ranks, (R=1, T=2) on 2, (R=2, W=2, T=2)
+           on 8, and (R=2, T=1) on 6, JAX's idle fallback (the workers axis
+           takes 2 of its 3 slots; ranks 4 and 5 idle, exiting 0).  Ranks
+           outnumbering the cards share the one card over gloo (every
+           kernel on the card, the collectives through the host); with a
+           card a rank they run over NCCL, and the phase prints which ran
+           ("not run (1 card)" otherwise).  Each rank runs two engine rounds,
+           held to the single-process engine's round by round (the first
+           round's metrics at rtol 1e-4, the second's at 2e-3, after Adam
+           steps at rounding noise went either way; parameters none beyond
+           Adam's largest steps, and after the first round under 0.5% off
+           by more than rtol 1e-2), times three warm rounds on the host
+           (ranks sharing a card: not a scaling number), then the CLI for 10
+           rounds (a swap at 5, checkpoints at 5 and 9): finite metrics,
+           2 Adam launches a round and one sampling launch a chunk on every
+           rank of the mesh, none on an idle one; the final checkpoint
+           resumes in one process for one round.  The kernels phase times
+           Adam on the (R=2, W=2, T=2) rank's arenas (its G tensor slice of
+           1,727,360 elements and 4 D) and sampling at 5 rows a worker, each
+           against its plain version and bound
   standalone  the CLI in --mode standalone (CIFAR10, b=10, full width, 30
            rounds, float32): 2 Adam launches a local epoch and one sampling
            launch a chunk, counted from the run; then two narrow standalone
@@ -245,6 +269,17 @@ def _sum_arenas(*arenas):
     return out
 
 
+def g_shard_numel(size: int = 2) -> int:
+    """The headline generator's parameters on one slot of a tensor axis of
+    ``size`` (``parallel/tensor.py``): its Adam arena on an axes rank."""
+    from mdgan_tpu_torch.core.mesh import Axis
+    from mdgan_tpu_torch.core.registry import get as get_spec
+    from mdgan_tpu_torch.parallel import tensor as tensor_lib
+
+    g = tensor_lib.shard_module(get_spec("CIFAR10").make_generator(), Axis(size, 0))
+    return sum(p.numel() for p in g.parameters())
+
+
 def phase_kernels():
     """The three kernels at the main path's shapes, and at each other
     family's, against their plain versions: Adam with float32 moments and
@@ -275,6 +310,11 @@ def phase_kernels():
         rec.update({k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes",
                                          "share_of_bound")}, bound_by=d8["bound_by"])
         rec["standalone"] = _sum_arenas(g, d1)  # one local epoch: one launch on G, one on D
+        if not bf16:
+            # the axes phase's (R=2, W=2, T=2) rank: its G tensor slice, 4 D
+            rec["arenas"]["G T=2 shard"] = adam_arena(gen, g_shard_numel(), rec, "G T=2 shard")
+            rec["arenas"]["D x4"] = adam_arena(gen, 4 * n_d1, rec, "D x4")
+            rec["axes"] = _sum_arenas(rec["arenas"]["G T=2 shard"], rec["arenas"]["D x4"])
         for dataset in FAMILIES:
             n_g, n_d1 = sizes(dataset)
             arenas = {name: adam_arena(gen, n, rec, f"{dataset} {name}", bf16)
@@ -342,6 +382,8 @@ def phase_sampling(gen):
         "unaligned_base": check("unaligned_base", shards_of(8, 500, (32, 32, 3), offset=1),
                                 indices(10, 8, 10, 500)),
         "round_idx_2d": check("round_idx_2d", cifar, indices(1, 8, 10, 6250)[0]),
+        # a replica's rows: b/R = 5 a worker (the axes phase's R=2 chunks)
+        "axes_T100_b5": check("axes_T100_b5", cifar, indices(100, 8, 5, 6250)),
     }
     whole = shards_of(1, 50000, (32, 32, 3))  # the standalone run's one-shard stack
     cases["standalone_T100"] = check("standalone_T100", whole, indices(100, 1, 10, 50000))
@@ -353,13 +395,14 @@ def phase_sampling(gen):
     cases["out_of_range"] = check("out_of_range", cifar, idx, bad)
 
     timed = {}
-    for name, t, stack in (("chunk_T100", 100, cifar), ("round_T1", 1, cifar),
-                           ("standalone_T100", 100, whole)):
+    for name, t, stack, b in (("chunk_T100", 100, cifar, 10), ("round_T1", 1, cifar, 10),
+                              ("standalone_T100", 100, whole, 10),
+                              ("axes_T100_b5", 100, cifar, 5)):
         n, s = stack.shape[:2]
-        rows = t * n * 10
+        rows = t * n * b
         # fresh rows each call, more of them than the L2 holds
         k = max(8, math.ceil(2 * L2_BYTES / (rows * 3072)))
-        pool = [indices(t, n, 10, s) for _ in range(k)]
+        pool = [indices(t, n, b, s) for _ in range(k)]
         it = itertools.count()
         k_t = time_ms(lambda: sampling.sample_normalize(stack, pool[next(it) % k]), 20)
         p_t = time_ms(lambda: sampling.sample_normalize_plain(stack, pool[next(it) % k]), 10)
@@ -1536,15 +1579,16 @@ def _round_host_ms(warm: int = 5, timed: int = 20) -> float:
     return (time.perf_counter() - t) / timed * 1e3
 
 
-def _launch_ranks(world: int, argv, timeout: float):
-    """``python -m torch.distributed.run`` of this script's rank program on
-    ``world`` local ranks; every rank is killed if it outlives ``timeout``.
-    Returns (exit code, output)."""
+def _launch_ranks(world: int, argv, timeout: float, program: str = "--rank-program"):
+    """``python -m torch.distributed.run`` of this script's rank program
+    (``program``) on ``world`` local ranks; every rank is killed if it
+    outlives ``timeout``.  Returns (exit code, output)."""
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(ROOT), env.get("PYTHONPATH")]))
     env.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: the ranks meet on loopback
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-           str(world), str(ROOT / "chip_smoke.py"), "--rank-program", *map(str, argv)]
+           str(world), str(ROOT / "chip_smoke.py"), program, *map(str, argv)]
     proc = subprocess.Popen(cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True, start_new_session=True)
     try:
@@ -1669,6 +1713,229 @@ def phase_distributed(rounds: int = 10, n: int = 8):
             "single_cli_ms_per_round_rounds_5_9": (s1["elapsed_s"] - s0["elapsed_s"]) / 4 * 1e3}
 
 
+# the axes phase's layouts: (name, ranks, R, T).  (R=2, T=1) on 6 ranks is
+# JAX's idle fallback: the workers axis takes 2 of its 3 slots (the largest
+# divisor of N=8 that fits), so ranks 4 and 5 are idle
+AXES_LAYOUTS = (("R2_T1", 2, 2, 1), ("R1_T2", 2, 1, 2), ("R2_W2_T2", 8, 2, 2),
+                ("R2_T1_idle", 6, 2, 1))
+AXES_ENGINE_ROUNDS, AXES_TIMED_ROUNDS = 2, 3
+AXES_METRICS = ("mean_d_loss", "g_feedback_loss", "feedback_norm")
+
+
+def _headline_engine(layout=None):
+    """The headline MD-GAN engine (CIFAR10, N=8, b=10, full width, float32)
+    in ``layout`` (default: this process's), its state, shards and sampler."""
+    from mdgan_tpu_torch.core.config import TrainConfig
+    from mdgan_tpu_torch.core.registry import get as get_spec
+    from mdgan_tpu_torch.data.partitioner import shard_data
+    from mdgan_tpu_torch.data.sampler import ShardSampler
+    from mdgan_tpu_torch.engine.mdgan import MDGANEngine
+
+    spec = get_spec("CIFAR10")
+    shards_np, _ = shard_data(spec.load("data")[0], 8, iid=True, seed=0)
+    eng = MDGANEngine(spec, TrainConfig(compute_dtype="float32"), 8, layout=layout)
+    return eng, eng.init_state(1), eng.shard_data(shards_np), ShardSampler(
+        8, shards_np.shape[1], 10, seed=0)
+
+
+# the engine rounds' metrics against one process, by round: the first
+# round's before any Adam step could part them (the D losses) or after one
+# step on gradients summed in another order; the second after the first
+# round's steps, whose elements at rounding noise went either way, moved the
+# weights (measured on this config on an H100: up to 1.8e-5 in round 0 and
+# 6.4e-4 in round 1; on the CPU, where every rank's convolutions sum in the
+# one process's order, 6.6e-6 in round 1)
+AXES_METRIC_RTOL = (1e-4, 2e-3)
+
+
+def adam_bound(steps: int, lr: float = 2e-4, b2: float = 0.999) -> float:
+    """The most two runs' parameters can part after ``steps`` Adam steps
+    (beta_1 = 0): step t moves an element by up to lr sqrt((1 - b2^t) /
+    (1 - b2)), in either direction where its gradient sits at rounding
+    noise (the round phase's sign-flip bound, 2.05 lr a step, for t > 1)."""
+    return 2 * lr * sum(math.sqrt((1 - b2 ** t) / (1 - b2)) for t in range(1, steps + 1)) + 1e-6
+
+
+def axes_program(argv) -> int:
+    """One rank of the ``axes`` phase, started by ``torch.distributed.run``:
+    ``<out> <R> <T> <CLI argv>``.  In the (R, W, T) mesh of the process
+    group, under deterministic algorithms with TF32 off: the headline engine
+    for ``AXES_ENGINE_ROUNDS`` rounds (its metrics, its gathered generator
+    and its discriminators into ``<out>/engine_<rank>.pt``), then
+    ``AXES_TIMED_ROUNDS`` warm rounds timed on the host; then, its counters
+    set to 0, the CLI's main with ``--num_replicas R --num_tensor T``.  Its
+    launch counts, backend and round time go into ``<out>/rank_<rank>.json``.
+    An idle rank skips the engine, and its main returns at once."""
+    import torch
+    import torch.distributed as dist
+
+    from mdgan_tpu_torch.cli import train
+    from mdgan_tpu_torch.core import distributed
+    from mdgan_tpu_torch.core.mesh import rank_layout
+    from mdgan_tpu_torch.ops import adam, sampling
+    from mdgan_tpu_torch.parallel import tensor as tensor_lib
+
+    out, r, t, argv = Path(argv[0]), int(argv[1]), int(argv[2]), argv[3:]
+    out.mkdir(parents=True, exist_ok=True)
+    distributed.maybe_initialize()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    rank, lay = dist.get_rank(), rank_layout(8, r, t)
+    rec = {"rank": rank, "backend": dist.get_backend(), "coords": list(lay.coords),
+           "shape": list(lay.shape), "idle": lay.idle, "host_ms_per_round": None}
+    if not lay.idle:
+        eng, st, shards, sampler = _headline_engine(lay)
+        rounds = []
+        for _ in range(AXES_ENGINE_ROUNDS):
+            m = eng.run_rounds(st, shards, sampler, 1)
+            g = tensor_lib.gather_arenas(st.g, lay.tensor_axis, {"params": st.g.params})
+            rounds.append({"g": g["params"].to("cpu", copy=True),
+                           "d": st.d.params.to("cpu", copy=True),
+                           **{k: m[k].cpu() for k in AXES_METRICS}})
+        torch.save({"coords": list(lay.coords), "g_shard_numel": st.g.numel,
+                    "rounds": rounds}, out / f"engine_{rank}.pt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_rounds(st, shards, sampler, AXES_TIMED_ROUNDS)
+        torch.cuda.synchronize()
+        rec["host_ms_per_round"] = (time.perf_counter() - t0) / AXES_TIMED_ROUNDS * 1e3
+        del eng, st, shards
+        torch.cuda.empty_cache()
+    adam.adam_update.launches = adam.adam_update.launches_bf16m = 0
+    sampling.sample_normalize.launches = 0
+    rc = train.main(argv + ["--num_replicas", str(r), "--num_tensor", str(t)])
+    rec["launches"] = {"adam": adam.adam_update.launches,
+                       "adam_bf16m": adam.adam_update.launches_bf16m,
+                       "sampling": sampling.sample_normalize.launches}
+    (out / f"rank_{rank}.json").write_text(json.dumps(rec))
+    return rc
+
+
+def phase_axes(rounds: int = 10, n: int = 8):
+    """The replica and tensor axes (``core/mesh.py``, ``parallel/tensor.py``)
+    on the card: each layout of ``AXES_LAYOUTS`` as ranks under
+    ``torch.distributed.run`` (over gloo where the ranks outnumber the
+    cards, every rank on the one card, the collectives staged through the
+    host; over NCCL, one rank a card, where there are enough cards).  Each
+    rank's engine rounds are held to the single-process engine's,
+    deterministic and TF32 off on both sides, round by round: the metrics
+    at ``AXES_METRIC_RTOL``, the parameters sign-flip aware (none further
+    than Adam's steps can move them, ``adam_bound``; after the first round
+    under 0.5% of them off by more than rtol 1e-2, the round tests' rule).
+    A split batch sums gradients in another order, and an Adam step whose
+    gradient sits at rounding noise can go either way; the
+    CLI's 10 rounds (a swap at 5, checkpoints at 5 and 9) must end with
+    finite metrics, 2 Adam launches a round and one sampling launch a chunk
+    on every rank of the mesh (none on an idle one), and the final
+    checkpoint resumes in one process for one round."""
+    import numpy as np
+    import torch
+
+    cards = torch.cuda.device_count()
+    argv = ["--mode", "mdgan", "--dataset", "CIFAR10", "--num_workers", str(n),
+            "--batch_size", "10", "--epochs", str(rounds), "--swap_interval", "5",
+            "--log_interval", "5", "--checkpoint_interval", "5", "--compute_dtype", "float32"]
+    chunks = cli_chunks(rounds, 5, 5, 100, 5)
+    with no_tf32():
+        torch.use_deterministic_algorithms(True)
+        try:
+            eng, st, shards, sampler = _headline_engine()
+            ref = []
+            for _ in range(AXES_ENGINE_ROUNDS):
+                m = eng.run_rounds(st, shards, sampler, 1)
+                ref.append({"g": st.g.params.to("cpu", copy=True),
+                            "d": st.d.params.to("cpu", copy=True),
+                            **{k: m[k].cpu() for k in AXES_METRICS}})
+            del eng, st, shards
+            torch.cuda.empty_cache()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    out = {}
+    for name, world, r, t in AXES_LAYOUTS:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            start = time.perf_counter()
+            rc, text = _launch_ranks(world, [root / "ranks", r, t, *argv, *out_dirs(root)],
+                                     timeout=420, program="--axes-program")
+            seconds = time.perf_counter() - start
+            require(rc == 0, f"axes {name}: {world} ranks exited {rc}:\n{text[-4000:]}")
+            ranks = [json.loads((root / "ranks" / f"rank_{i}.json").read_text())
+                     for i in range(world)]
+            used = [rk for rk in ranks if not rk["idle"]]
+            shape = used[0]["shape"]
+            require(len(used) == shape[0] * shape[1] * shape[2] and all(
+                rk["rank"] >= len(used) for rk in ranks if rk["idle"]),
+                f"axes {name}: idle ranks {[rk['rank'] for rk in ranks if rk['idle']]}")
+            for rk in ranks:
+                want = ({"adam": 0, "adam_bf16m": 0, "sampling": 0} if rk["idle"] else
+                        {"adam": 2 * rounds, "adam_bf16m": 0, "sampling": len(chunks)})
+                require(rk["launches"] == want, f"axes {name} rank {rk['rank']}: launches "
+                        f"{rk['launches']}, want {want} (chunks {chunks})")
+            summary = _json_lines(text)[-1]
+            require(summary["all_finite"] and summary["swaps"] == 1
+                    and summary["rounds"] == rounds, f"axes {name}: {summary}")
+
+            # the engine rounds against the single-process engine's
+            eng_recs = {rk["rank"]: torch.load(root / "ranks" / f"engine_{rk['rank']}.pt",
+                                               weights_only=True) for rk in used}
+            first = eng_recs[0]
+            engine = []
+            for i, want in enumerate(ref):
+                got = dict(first["rounds"][i])
+                for j, e in eng_recs.items():
+                    require(torch.equal(e["rounds"][i]["g"], got["g"]),
+                            f"axes {name}: rank {j}'s generator differs from rank 0's")
+                got["d"] = torch.cat([next(e["rounds"][i]["d"] for e in eng_recs.values()
+                                           if tuple(e["coords"]) == (0, w, 0))
+                                      for w in range(shape[1])])
+                rec = {"metric_rel_err": {k: float(((got[k] - want[k]).abs()
+                                                    / want[k].abs()).max())
+                                          for k in AXES_METRICS}}
+                for net in ("g", "d"):
+                    rec[f"{net}_max_abs_diff"] = float((got[net] - want[net]).abs().max())
+                    rec[f"{net}_off_share"] = 1.0 - float(torch.isclose(
+                        got[net], want[net], rtol=1e-2, atol=1e-6).float().mean())
+                worst = max(rec["metric_rel_err"].values())
+                require(worst <= AXES_METRIC_RTOL[i], f"axes {name}: round {i} metrics rel "
+                        f"err {worst} > {AXES_METRIC_RTOL[i]} ({rec})")
+                dp = max(rec["g_max_abs_diff"], rec["d_max_abs_diff"])
+                require(dp <= adam_bound(i + 1), f"axes {name}: round {i} params max |diff| "
+                        f"{dp} > {adam_bound(i + 1)}")
+                if i == 0:
+                    off = max(rec["g_off_share"], rec["d_off_share"])
+                    require(off < 0.005, f"axes {name}: {off:.2%} of the parameters off the "
+                            "one-process run's by more than rtol 1e-2 after round 0")
+                engine.append(rec)
+
+            # the final checkpoint resumed in one process for one round
+            from mdgan_tpu_torch.cli import train
+
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = train.main(argv + ["--epochs", str(rounds + 1), "--resume"]
+                                + out_dirs(root / "resumed")
+                                + ["--checkpoint_dir", str(root / "checkpoint_dir")])
+            resumed = json.loads(buf.getvalue().strip().splitlines()[-1])
+            require(rc == 0 and resumed["rounds"] == 1 and resumed["all_finite"],
+                    f"axes {name}: resume {resumed}")
+        out[name] = {
+            "ranks": world, "shape_RWT": shape, "backend": sorted({rk["backend"] for rk in ranks}),
+            "idle_ranks": [rk["rank"] for rk in ranks if rk["idle"]],
+            "g_shard_elements": first["g_shard_numel"],
+            "engine_rounds": engine,
+            "launches_per_rank": [rk["launches"] for rk in ranks],
+            "host_ms_per_round": [rk["host_ms_per_round"] for rk in used],
+            "host_ms_note": ("ranks sharing one card over gloo: not a scaling number"
+                             if cards < world else "one rank a card"),
+            "summary": {k: summary[k] for k in ("rounds", "swaps", "all_finite",
+                                                "final_mean_d_loss", "steps_per_sec")},
+            "seconds": seconds}
+    nccl = [name for name, rec in out.items() if rec["backend"] == ["nccl"]]
+    return {"cards": cards, "layouts": out, "chunks": chunks,
+            "nccl_layouts": nccl or f"not run ({cards} card{'s' if cards != 1 else ''})"}
+
+
 def main() -> int:
     import torch
 
@@ -1681,6 +1948,8 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--rank-program"]:  # a rank of the distributed phase
         return rank_program(sys.argv[2:])
+    if sys.argv[1:2] == ["--axes-program"]:  # a rank of the axes phase
+        return axes_program(sys.argv[2:])
 
     # deterministic cuBLAS, for the trainer phase's bit-identical resume;
     # set before the first cuBLAS call of the process
@@ -1745,6 +2014,14 @@ def main() -> int:
           f"{dist_rec['world_sizes_run']}, {dist_rec['cards']} card(s))", flush=True)
 
     t = time.perf_counter()
+    axes_rec = phase_axes()
+    emit({"phase": "axes", "seconds": time.perf_counter() - t, "card": smi, **axes_rec})
+    for name, rec in axes_rec["layouts"].items():
+        print(f"axes {name}: {rec['ranks']} ranks, (R, W, T) = {tuple(rec['shape_RWT'])}, "
+              f"idle {rec['idle_ranks']}, over {'/'.join(rec['backend'])}", flush=True)
+    print(f"axes over NCCL, one rank a card: {axes_rec['nccl_layouts']}", flush=True)
+
+    t = time.perf_counter()
     rec, standalone_launches = phase_standalone()
     emit({"phase": "standalone", "seconds": time.perf_counter() - t, "card": smi, **rec})
 
@@ -1772,19 +2049,28 @@ def main() -> int:
              "standalone": standalone_launches,
              "distributed": {k: sum(c[k] for c in dist_rec["launches_per_rank"])
                              for k in ("adam", "adam_bf16m", "sampling")},
+             "axes": {k: sum(c[k] for rec in axes_rec["layouts"].values()
+                             for c in rec["launches_per_rank"])
+                      for k in ("adam", "adam_bf16m", "sampling")},
              **tools_launches}
     sa_samp = samp_rec["timed"]["standalone_T100"]
     main_adam = {k: adam_rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     main_samp = {k: samp_rec[k] for k in ("ms", "plain_ms", "bound_ms")}
     mnist_samp = samp_rec["families"]["MNIST"]["mdgan"]
     by_path = {
+        # the axes path at its (R=2, W=2, T=2) rank's arenas: a G tensor slice and 4 D
         "adam": {"mdgan": dict(main_adam), "standalone": adam_rec["standalone"],
                  "distributed": dict(main_adam), "mdgan_cifar10_bin": dict(main_adam),
+                 "axes": {k: adam_rec["axes"][k] for k in (
+                     "ms", "plain_ms", "library_ms", "bound_ms")},
                  "mnist_download": dict(adam_rec["families"]["MNIST"]["mdgan"])},
         "adam_bf16m": {"mdgan_bf16_moments": {k: bf16m_rec[k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms")}},
         "sampling": {"mdgan": dict(main_samp), "mdgan_bf16_moments": dict(main_samp),
                      "distributed": dict(main_samp), "mdgan_cifar10_bin": dict(main_samp),
+                     # a replica's launch: b/R = 5 rows a worker
+                     "axes": {k: samp_rec["timed"]["axes_T100_b5"][k] for k in (
+                         "ms", "plain_ms", "bound_ms")},
                      "standalone": {k: sa_samp[k] for k in ("ms", "plain_ms", "bound_ms")},
                      "mnist_download": {k: mnist_samp[k] for k in (
                          "ms", "plain_ms", "bound_ms", "rounds_per_launch")}},

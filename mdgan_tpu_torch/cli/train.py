@@ -17,11 +17,18 @@ Usage:
         --batch_size 10 --epochs 30000
 
 On several cards, one process a card, the N discriminators sharded over them
-(N/W each; NCCL, or gloo with ``--device cpu``):
+(N/W each; NCCL, or gloo with ``--device cpu`` or with more ranks than cards):
     python -m torch.distributed.run --standalone --nproc_per_node <cards> \
         -m mdgan_tpu_torch.cli.train --mode mdgan --num_workers 8 ...
 Rank 0 prints and writes every file; ``--swap_impl ppermute`` (or ``auto``
-with one worker a rank) swaps discriminators point to point.
+with one worker a rank) swaps discriminators point to point.  The ranks form
+JAX's (replica, workers, tensor) mesh (``core/mesh.py``):
+``--num_replicas R`` splits every batch over R ranks (BatchNorm over the
+whole batch), ``--num_tensor T`` splits the generator over T ranks
+(column-parallel layers), and the workers axis takes the largest divisor of
+N that fits in world/(R*T); ranks past the mesh are idle and exit 0.  In
+one process both flags are ignored, as JAX ignores them on one device, and
+``--mode standalone`` ignores them.
 
 ``--moment_dtype bfloat16`` keeps the Adam moments in bfloat16 (optax's
 rounding, through the bf16-moment CUDA kernel); ``--straggler_rate r`` drops
@@ -46,6 +53,7 @@ import logging
 from pathlib import Path
 
 from mdgan_tpu_torch.core import distributed
+from mdgan_tpu_torch.core.mesh import rank_layout
 from mdgan_tpu_torch.core.config import (
     DataConfig, MeshConfig, OptimizerConfig, RunConfig, TrainConfig,
 )
@@ -104,20 +112,11 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-# flags whose feature waits for a later slice -> the ROADMAP item
-_NOT_PORTED = [
-    (lambda a: a.num_replicas > 1 or a.num_tensor > 1,
-     "--num_replicas/--num_tensor > 1", "ROADMAP.md A.8b"),
-]
 # chunks of the run that --profile_dir traces, after one warm-up chunk
 _PROFILED_CHUNKS = 3
 
 
 def config_from_args(args: argparse.Namespace) -> RunConfig:
-    for pred, what, item in _NOT_PORTED:
-        if pred(args):
-            raise NotImplementedError(f"{what} is not ported to mdgan_tpu_torch yet ({item})")
-
     def opt(lr):
         return OptimizerConfig(lr=lr, beta_1=args.beta_1, beta_2=args.beta_2,
                                mu_dtype=args.moment_dtype, nu_dtype=args.moment_dtype)
@@ -182,6 +181,18 @@ def _run(args: argparse.Namespace) -> int:
         ensure_dataset(args.dataset, args.data_dir)
     from mdgan_tpu_torch.engine.train_loop import MDGANTrainer, StandaloneTrainer
 
+    layout = None
+    mesh = cfg.mesh
+    if cfg.mode == "mdgan":
+        layout = rank_layout(mesh.num_workers, mesh.num_replicas, mesh.num_tensor)
+        if layout.idle:
+            logging.getLogger("mdgan_tpu_torch").info(
+                "rank %d idle: the (R, W, T) = %s mesh uses %d of %d ranks", layout.rank,
+                layout.shape, layout.used, layout.world)
+            return 0
+    elif mesh.num_replicas > 1 or mesh.num_tensor > 1:
+        logging.getLogger("mdgan_tpu_torch").info(
+            "--num_replicas/--num_tensor ignored: the standalone baseline runs in one process")
     monitor = None
     if args.host_metrics:
         from mdgan_tpu_torch.obs.hostmon import HostMonitor
@@ -189,7 +200,7 @@ def _run(args: argparse.Namespace) -> int:
         monitor = HostMonitor(args.host_metrics).start()
     prof = _profiler(args.profile_dir) if args.profile_dir else None
     try:
-        trainer = MDGANTrainer(cfg) if cfg.mode == "mdgan" else StandaloneTrainer(cfg)
+        trainer = MDGANTrainer(cfg, layout) if cfg.mode == "mdgan" else StandaloneTrainer(cfg)
         try:
             if prof is not None:
                 prof.start()

@@ -58,10 +58,10 @@ class MeshConfig:
     """Device layout (``mdgan_tpu/core/config.py:62-88``).
 
     ``num_workers`` is N, the number of discriminators.  Under
-    ``torch.distributed`` the N discriminators are sharded over the W
-    ranks, N/W each (``core/mesh.py``): the JAX package's workers axis.
-    ``num_devices`` and the axis names have no effect; replica and tensor
-    axes above 1 are not ported yet (ROADMAP.md A.8b).
+    ``torch.distributed`` the ranks form the (replica, workers, tensor) mesh
+    of ``core/mesh.py``: N/W discriminators a worker slot, every batch split
+    over ``num_replicas`` ranks, the generator over ``num_tensor``.
+    ``num_devices`` and the axis names have no effect.
     """
 
     num_workers: int = 8

@@ -48,6 +48,23 @@ straggler mask are keyed by the GLOBAL worker id, so the run equals the
 single-process one up to the order of that sum.  The per-worker losses are
 gathered to (N,) once a chunk.
 
+**The replica and tensor axes** (``--num_replicas R``, ``--num_tensor T``;
+``core/mesh.py``).  Rank (r, w, t) holds worker slot w's discriminators,
+replicated over r and t, and the generator's tensor slice t
+(``parallel/tensor.py``).  The round splits every batch over the replicas:
+replica r takes rows ``rows`` of each worker's b (sizes differing by at
+most one), gathers only those real rows, and draws the round's k*b latents
+as (k, b) and keeps the same columns, so its share of every fake batch is
+exactly the rows its discriminators train and feed back on.  BatchNorm
+statistics (and StyleGAN2's minibatch statistic) are the whole batch's;
+losses are local sums over the global b; the D and G gradients are summed
+over the replica group before each Adam launch; the cotangent is summed over
+the workers group (same r and t) only.  Metrics are made whole once a
+chunk: the loss parts and the feedbacks' squared sums summed over the
+replicas, the per-worker series gathered over the workers group, and
+``x_eval`` gathered over the replicas in the single-process row order.
+Without those axes the round is the one above, op for op.
+
 A discriminator with dropout (the MLP's) draws its masks from the DROPOUT
 lane, keyed as the JAX engine folds its dropout key (``:252-268, 287-288``):
 the D step's forwards by (step, local epoch l, worker w, half: 0 real, 1
@@ -70,13 +87,14 @@ import torch
 
 from mdgan_tpu_torch.core import distributed, prng
 from mdgan_tpu_torch.core.config import TrainConfig, k_batches, resolve_device
-from mdgan_tpu_torch.core.mesh import rank_layout
+from mdgan_tpu_torch.core.mesh import RankLayout, rank_layout
 from mdgan_tpu_torch.core.registry import DatasetSpec
 from mdgan_tpu_torch.engine.state import MDGANState, NetState, moment_dtype
 from mdgan_tpu_torch.models.layers import dcgan_init_
 from mdgan_tpu_torch.ops import losses
 from mdgan_tpu_torch.ops.sampling import sample_normalize
 from mdgan_tpu_torch.parallel import swap as swap_lib
+from mdgan_tpu_torch.parallel import tensor as tensor_lib
 
 # the most float32 bytes one sampling launch of a chunk writes
 GATHER_CAP_BYTES = 256 * 2 ** 20
@@ -189,9 +207,10 @@ class MDGANEngine(EngineBase):
     """Holds the models' factories, the device, the rank layout and the round."""
 
     def __init__(self, spec: DatasetSpec, train_cfg: TrainConfig, num_workers: int,
-                 model_kwargs: Optional[Dict] = None):
-        """The workers this process holds come from the ``torch.distributed``
-        group (``core/mesh.py``): all N without one."""
+                 model_kwargs: Optional[Dict] = None, layout: Optional[RankLayout] = None):
+        """The workers this process holds, its replica rows and its tensor
+        slice come from ``layout`` (default: the ``torch.distributed`` group's
+        workers axis, ``core/mesh.py``; all N without one)."""
         if num_workers < 1:
             raise ValueError("need at least one discriminator worker")
         if not 0.0 <= train_cfg.straggler_rate < 1.0:
@@ -199,7 +218,20 @@ class MDGANEngine(EngineBase):
                 f"straggler_rate must be in [0, 1), got {train_cfg.straggler_rate}")
         super().__init__(spec, train_cfg, model_kwargs)
         self.n = num_workers
-        self.layout = rank_layout(num_workers)
+        self.layout = rank_layout(num_workers) if layout is None else layout
+        if self.layout.idle:
+            raise ValueError(f"rank {self.layout.rank} is idle in the (R, W, T) = "
+                             f"{self.layout.shape} mesh: it holds no worker")
+        self._replica, self._tensor = self.layout.replica_axis, self.layout.tensor_axis
+        b = train_cfg.batch_size
+        if b < self._replica.size:
+            raise ValueError(f"batch_size={b} must be at least num_replicas="
+                             f"{self._replica.size}: every replica takes rows of each batch")
+        # this replica's rows of every batch: np.array_split's sizes
+        self._row_sizes = [len(a) for a in np.array_split(np.arange(b), self._replica.size)]
+        lo_row = sum(self._row_sizes[:self._replica.index])
+        self._rows = slice(lo_row, lo_row + self._row_sizes[self._replica.index])
+        self._split = self._replica.active
         self.k = k_batches(num_workers)
         w = torch.arange(self.layout.lo, self.layout.hi, device=self.device)
         self._g_assign = w % self.k          # X_g batch per worker (server.py:238)
@@ -211,10 +243,17 @@ class MDGANEngine(EngineBase):
     # ------------------------------------------------------------------
 
     def init_state(self, seed: int) -> MDGANState:
-        """G from lane INIT_G, discriminator w from lane (INIT_D, w), for
-        this rank's global worker ids w."""
-        return MDGANState(g=self.new_generator(seed),
-                          d=self._new_discriminators(seed, self.layout.workers), seed=seed)
+        """G from lane INIT_G (this rank's tensor slice of it), discriminator
+        w from lane (INIT_D, w), for this rank's global worker ids w."""
+        g = self._init(self.spec.make_generator(**self._kw(self.spec.g_widths)),
+                       prng.generator(seed, prng.INIT_G))
+        g = tensor_lib.shard_module(g, self._tensor)
+        d = self._new_discriminators(seed, self.layout.workers)
+        for m in [g, *d.modules]:
+            for sub in m.modules():
+                if hasattr(sub, "replica"):  # BatchNorm, the minibatch statistic
+                    sub.replica = self._replica
+        return MDGANState(g=NetState([g], self.device, self._g_moments), d=d, seed=seed)
 
     def shard_data(self, shards: np.ndarray) -> torch.Tensor:
         """This rank's rows of the (N, S, H, W, C) uint8 shard stack,
@@ -233,6 +272,25 @@ class MDGANEngine(EngineBase):
         """This round's k*b latents from lane (LATENT, step)."""
         return self._latents(st.step, st.seed, self.k * self.cfg.batch_size)
 
+    def _my_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This replica's rows of every batch of a (k*b, ...) tensor, as
+        (k*b_r, ...)."""
+        if not self._split:
+            return x
+        k, b = self.k, self.cfg.batch_size
+        return x.reshape(k, b, *x.shape[1:])[:, self._rows].reshape(-1, *x.shape[1:])
+
+    def _d_forward(self, d, x: torch.Tensor, seed: int, step: int, path: Tuple[int, ...],
+                   masks: Optional[Masks]) -> torch.Tensor:
+        """As the base class's, with this replica's rows of the whole batch's
+        dropout masks when the batch is split."""
+        if not (self._split and getattr(d, "uses_dropout", False)):
+            return super()._d_forward(d, x, seed, step, path, masks)
+        full = masks[path] if masks is not None else d.draw_masks(
+            prng.reseed(self._dropgen, seed, prng.DROPOUT, step, *path),
+            self.cfg.batch_size, x.device)
+        return d(x, [m[self._rows] for m in full])
+
     def straggler_mask(self, st: MDGANState) -> torch.Tensor:
         """This round's (N,) accepted-feedback mask from lane (STRAGGLER,
         step): u ~ U(0,1) a worker, kept iff ``u <= 1 - rate``, and the
@@ -249,7 +307,8 @@ class MDGANEngine(EngineBase):
 
         data: this rank's (N/W, S, H, W, C) uint8 shards on the device
         (:meth:`shard_data`); idx: the round's (N, b) int32 indices of all
-        N workers, on the device; z: optional (k*b, z_dim) latents; masks:
+        N workers, on the device; z: optional (k*b, z_dim) latents, all of
+        them (a replica keeps its rows); masks:
         optional dropout keep masks by key path, (l, w, half) for the D step
         and (local_epochs, w) for the feedback, w the global worker id
         (tests inject JAX's); fb_mask: optional (N,) bool straggler mask
@@ -260,31 +319,54 @@ class MDGANEngine(EngineBase):
         generator.
         """
         lo, hi = self.layout.lo, self.layout.hi
-        m = self._round(st, sample_normalize(data, idx[lo:hi]), z, masks, fb_mask)
-        for key, full in zip(("mean_d_loss", "g_feedback_loss"),
-                             self._gather_workers(m["mean_d_loss"], m["g_feedback_loss"])):
-            m[key] = full
-        return m
+        m = self._round(st, sample_normalize(data, idx[lo:hi, self._rows].contiguous()), z,
+                        masks, fb_mask)
+        return self._whole({k: v[None] if k != "x_eval" else v for k, v in m.items()},
+                           squeeze=True)
 
-    def _gather_workers(self, *local: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """Per-worker series (..., N/W) from every rank -> (..., N), in one
-        ``all_gather``."""
-        if not self.layout.distributed:
-            return local
-        full = distributed.all_gather_cat(torch.stack([t.float() for t in local]),
-                                          self.layout.world, dim=-1)
-        return tuple(f.to(t.dtype) for f, t in zip(full.unbind(0), local))
+    def _whole(self, m: Dict[str, torch.Tensor], squeeze: bool = False
+               ) -> Dict[str, torch.Tensor]:
+        """Rounds of this rank's metric parts -> the run's: the loss parts
+        and the feedbacks' squared sums summed over the replicas (one
+        ``all_reduce``), the per-worker series (rounds, N/W) gathered to
+        (rounds, N) over the workers group (one ``all_gather``), the norm
+        taken, and ``x_eval`` gathered over the replicas in the
+        single-process row order."""
+        parts = [m["mean_d_loss"], m["g_feedback_loss"], m.pop("fb_sq")[:, None]]
+        if self._split:
+            flat = distributed.all_reduce_(torch.cat(parts, 1).float(), self._replica)
+            parts = [p.to(q.dtype) for p, q in zip(flat.split([q.shape[1] for q in parts], 1),
+                                                   parts)]
+        m["feedback_norm"] = parts[2][:, 0].sqrt()
+        local = parts[:2]
+        if self.layout.worker_axis.active:
+            full = distributed.all_gather_cat(torch.stack([t.float() for t in local]),
+                                              self.layout.worker_axis, dim=-1)
+            local = [f.to(t.dtype) for f, t in zip(full.unbind(0), local)]
+        m["mean_d_loss"], m["g_feedback_loss"] = local
+        if self._split:
+            x = m["x_eval"]
+            x = x.reshape(self.k, -1, *x.shape[1:])
+            m["x_eval"] = distributed.gather(x, self._replica, 1, self._row_sizes).reshape(
+                -1, *x.shape[2:])
+        if squeeze:
+            m = {k: v if k == "x_eval" else v[0] for k, v in m.items()}
+        return m
 
     def _round(self, st: MDGANState, real: torch.Tensor, z: Optional[torch.Tensor],
                masks: Optional[Masks] = None,
                fb_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """The round's body on this rank's real batches ``real``,
-        (N/W, b, C, H, W) float32.  The per-worker metrics it returns are
-        this rank's."""
+        (N/W, b_r, C, H, W) float32.  The metrics it returns are this rank's
+        parts: its workers' losses (summed over its rows, over the global b,
+        under a replica split), the feedbacks' squared sum ``fb_sq`` and its
+        rows of ``x_eval``; :meth:`_whole` makes them the run's."""
         cfg, n, k, b = self.cfg, self.n, self.k, self.cfg.batch_size
         lo, nl = self.layout.lo, self.layout.per_rank
+        total = b if self._split else None  # losses: a mean, or a part of one
         if z is None:
             z = self.latents(st)
+        z = self._my_rows(z)
         if fb_mask is None and cfg.straggler_rate > 0.0:
             fb_mask = self.straggler_mask(st)
         g_net, d_net = st.g.modules[0], st.d.modules
@@ -296,7 +378,7 @@ class MDGANEngine(EngineBase):
         with self._autocast():
             x_all = g_net(z)
         img_shape = x_all.shape[1:]
-        x_k = x_all.detach().view(k, b, *img_shape)
+        x_k = x_all.detach().view(k, -1, *img_shape)
 
         # (2) fake batches per worker, (3) real batches and local D steps
         x_d = x_k[self._d_assign]
@@ -305,9 +387,10 @@ class MDGANEngine(EngineBase):
             st.d.zero_grad()
             with self._autocast():
                 loss = torch.stack([losses.d_loss(d_fwd(i, real[i], l, lo + i, 0),
-                                                  d_fwd(i, x_d[i], l, lo + i, 1))
+                                                  d_fwd(i, x_d[i], l, lo + i, 1), total)
                                     for i in range(nl)])
             loss.sum().backward()
+            distributed.all_reduce_(st.d.grads, self._replica)
             st.d.adam_step(cfg.discriminator_opt)
             d_loss_sum += loss.detach()
         mean_d_loss = d_loss_sum / cfg.local_epochs
@@ -315,7 +398,8 @@ class MDGANEngine(EngineBase):
         # (4) feedback through the updated discriminators
         x_g = x_k[self._g_assign].requires_grad_(True)
         with self._autocast():
-            g_losses = torch.stack([losses.g_loss(d_fwd(i, x_g[i], cfg.local_epochs, lo + i))
+            g_losses = torch.stack([losses.g_loss(d_fwd(i, x_g[i], cfg.local_epochs, lo + i),
+                                                  total)
                                     for i in range(nl)])
         (feedback,) = torch.autograd.grad(g_losses.sum(), x_g)
         fb_sq = feedback.square().sum()
@@ -324,39 +408,37 @@ class MDGANEngine(EngineBase):
             keep = fb_mask[lo:lo + nl].to(feedback.dtype)
             feedback = feedback * keep.view(-1, *([1] * (feedback.dim() - 1)))
 
-        # (5) scatter-add onto the source batches, summed over the ranks,
+        # (5) scatter-add onto the source batches, summed over the workers,
         # then one G backward at 1/(b*N), or 1/(b*|S|) under stragglers
         cot = torch.zeros_like(x_k).index_add_(0, self._g_assign, feedback)
-        if self.layout.distributed:
-            cot, fb_sq = self._sum_over_ranks(cot, fb_sq)
+        if self.layout.worker_axis.active:
+            cot, fb_sq = self._sum_over_workers(cot, fb_sq)
         st.g.zero_grad()
         if fb_mask is None:
             x_all.backward(cot.view_as(x_all) * (1.0 / (b * n)))
         else:
             scale = 1.0 / (b * fb_mask.sum().to(torch.float32))
             x_all.backward((cot.view_as(x_all).float() * scale).to(x_all.dtype))
+        distributed.all_reduce_(st.g.grads, self._replica)
         st.g.adam_step(cfg.generator_opt)
         st.step += 1
         out = {
             "mean_d_loss": mean_d_loss,
             "g_feedback_loss": g_losses.detach(),
-            "feedback_norm": fb_sq.sqrt(),
-            "x_eval": x_k.reshape(k * b, *img_shape),
+            "fb_sq": fb_sq,
+            "x_eval": x_all.detach(),
         }
         if fb_mask is not None:
             out["n_feedbacks"] = fb_mask.sum().to(torch.int32)
         return out
 
-    @staticmethod
-    def _sum_over_ranks(cot: torch.Tensor, fb_sq: torch.Tensor
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The round's one collective: the cotangent and the feedbacks'
-        squared sum packed into one float32 buffer and summed over the ranks
+    def _sum_over_workers(self, cot: torch.Tensor, fb_sq: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The workers' collective: the cotangent and the feedbacks' squared
+        sum packed into one float32 buffer and summed over the workers group
         (the two ``psum``s of ``mdgan.py:372-375``)."""
-        import torch.distributed as dist
-
         buf = torch.cat([cot.reshape(-1).float(), fb_sq.reshape(1).float()])
-        dist.all_reduce(buf)
+        distributed.all_reduce_(buf, self.layout.worker_axis)
         return buf[:-1].view(cot.shape).to(cot.dtype), buf[-1].to(fb_sq.dtype)
 
     def run_rounds(self, st: MDGANState, data: torch.Tensor, sampler, num_rounds: int,
@@ -371,19 +453,14 @@ class MDGANEngine(EngineBase):
         """
         if z is not None and z.shape[0] != num_rounds:
             raise ValueError(f"z holds {z.shape[0]} rounds of latents, want {num_rounds}")
-        idx = sampler.next_chunk(num_rounds)[:, self.layout.lo:self.layout.hi]
+        idx = sampler.next_chunk(num_rounds)[:, self.layout.lo:self.layout.hi, self._rows]
         idx = self.put_indices(idx, data.shape[1])
         out: List[Dict[str, torch.Tensor]] = [
             self._round(st, real, None if z is None else z[t])
             for t, real in enumerate(self._real_batches(data, idx))]
-        keys = ["mean_d_loss", "g_feedback_loss", "feedback_norm"]
-        if "n_feedbacks" in out[0]:
-            keys.append("n_feedbacks")
-        stacked = {key: torch.stack([m[key] for m in out]) for key in keys}
-        stacked["mean_d_loss"], stacked["g_feedback_loss"] = self._gather_workers(
-            stacked["mean_d_loss"], stacked["g_feedback_loss"])
+        stacked = {key: torch.stack([m[key] for m in out]) for key in out[0] if key != "x_eval"}
         stacked["x_eval"] = out[-1]["x_eval"]
-        return stacked
+        return self._whole(stacked)
 
     # ------------------------------------------------------------------
     # discriminator swap
@@ -410,11 +487,11 @@ class MDGANEngine(EngineBase):
         if sorted(perm.tolist()) != list(range(self.n)):
             raise ValueError(f"swap needs a permutation of range({self.n}), got {perm}")
         impl, lay = self.cfg.swap_impl, self.layout
-        eligible = lay.distributed and lay.world == self.n
+        eligible = lay.worker_axis.active and lay.worker_axis.size == self.n
         if impl == "ppermute" and not eligible:
             raise ValueError(
-                "swap_impl='ppermute' needs one worker per rank (world size "
-                f"{lay.world}, workers={self.n}); use 'gather' or 'auto'")
+                "swap_impl='ppermute' needs one worker per rank (workers axis "
+                f"{lay.worker_axis.size}, workers={self.n}); use 'gather' or 'auto'")
         if impl == "ppermute" or (impl == "auto" and eligible):
             swap_lib.swap_pairs(st.d, perm, lay, self.cfg.swap_opt_state)
         else:

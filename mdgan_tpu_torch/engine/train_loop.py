@@ -8,12 +8,16 @@ Under ``torch.distributed`` (``python -m torch.distributed.run``, one rank a
 GPU) the MD-GAN trainer runs as JAX's multi-host trainer does
 (``train_loop.py:128-170, 265-275``): every rank runs the same chunk and
 swap schedule in lockstep, with swap permutations from the same seeded host
-RNG, over its N/W discriminators (``engine/mdgan.py``); chunk metrics are
-gathered to every rank; rank 0 alone writes the CSVs, image grids, exports
-and checkpoints and runs the evals (the generator is replicated, so rank 0
-holds it), and the discriminators are gathered to it for checkpoints and
-the final exports.  The other ranks keep the same row bookkeeping through
-null loggers.
+RNG, over its N/W discriminators (``engine/mdgan.py``), on its rows of each
+batch under a replica axis and its slice of the generator under a tensor
+axis (``core/mesh.py``); chunk metrics are gathered to every rank; rank 0
+alone writes the CSVs, image grids, exports and checkpoints and runs the
+evals, and the discriminators are gathered to it for checkpoints and the
+final exports.  At every log event and checkpoint each tensor group
+gathers its generator whole on the main thread (``parallel/tensor.py``,
+as ``train_loop.py:298-335, 757-775`` gather JAX's), so the eval thread
+and the writers read a whole generator and never enter a collective.  The
+other ranks keep the same row bookkeeping through null loggers.
 
 Round/event semantics follow the JAX trainer exactly:
   * swap at end of round e when ``e % swap_interval == 0 and e > 0`` and N > 1;
@@ -48,7 +52,7 @@ import torch
 
 from mdgan_tpu_torch.core import distributed, prng
 from mdgan_tpu_torch.core.config import RunConfig
-from mdgan_tpu_torch.core.mesh import rank_layout
+from mdgan_tpu_torch.core.mesh import RankLayout, rank_layout
 from mdgan_tpu_torch.core.registry import get as get_spec
 from mdgan_tpu_torch.data.partitioner import shard_data
 from mdgan_tpu_torch.data.sampler import ShardSampler
@@ -58,6 +62,7 @@ from mdgan_tpu_torch.models import from_jax
 from mdgan_tpu_torch.obs import images as images_lib
 from mdgan_tpu_torch.obs import spans as spans_lib
 from mdgan_tpu_torch.ops import losses
+from mdgan_tpu_torch.parallel import tensor as tensor_lib
 from mdgan_tpu_torch.utils import checkpoint as ckpt_lib
 
 log = logging.getLogger("mdgan_tpu_torch")
@@ -130,13 +135,14 @@ def _load_run_data(run_cfg: RunConfig, spec):
 class MDGANTrainer:
     """End-to-end MD-GAN training run (the ``run-distributed.sh`` path)."""
 
-    def __init__(self, run_cfg: RunConfig):
+    def __init__(self, run_cfg: RunConfig, layout: Optional[RankLayout] = None):
+        """``layout``: this rank's place in the mesh (default: made from the
+        process group and ``run_cfg.mesh``; an idle rank's raises)."""
         self.cfg = run_cfg
         tc = run_cfg.train
         self.n = run_cfg.mesh.num_workers
-        # raises for the replica and tensor axes (A.8b) and a world size
-        # that does not divide N
-        rank_layout(self.n, run_cfg.mesh.num_replicas, run_cfg.mesh.num_tensor)
+        if layout is None:
+            layout = rank_layout(self.n, run_cfg.mesh.num_replicas, run_cfg.mesh.num_tensor)
         if tc.chunk_size < 1:
             raise ValueError(f"chunk_size must be at least 1, got {tc.chunk_size}")
         self.spec = get_spec(run_cfg.data.dataset)
@@ -145,9 +151,12 @@ class MDGANTrainer:
             raise ValueError(
                 f"num_workers={self.n} must be even when discriminator swaps "
                 "are enabled (set --swap_interval 0 to disable)")
-        self.engine = MDGANEngine(self.spec, tc, self.n)
+        self.engine = MDGANEngine(self.spec, tc, self.n, layout=layout)
         self.layout = self.engine.layout
         self._is_main = self.layout.is_main
+        if self.layout.distributed:
+            log.info("rank %d: (replica, worker slot, tensor slot) %s of the (R, W, T) = %s "
+                     "mesh", self.layout.rank, self.layout.coords, self.layout.shape)
         data = _load_run_data(run_cfg, self.spec)
         self.full_data = data
         # seed 0 == the reference's device_generator.manual_seed(0)
@@ -155,6 +164,8 @@ class MDGANTrainer:
         self.shards = self.engine.shard_data(shards)
         self.sampler = ShardSampler(self.n, shards.shape[1], tc.batch_size, seed=0)
         self.state = self.engine.init_state(tc.seed)
+        # the whole generator's arena layout, for exports of gathered arenas
+        self._g_layout = tensor_lib.full_layout(self.state.g)
         self.swap_rng = np.random.default_rng(tc.seed)
 
         name = f"mdgan.{self.n}.{run_cfg.data.dataset}"
@@ -219,8 +230,11 @@ class MDGANTrainer:
         return self.full_data[idx].astype(np.float32) / 255.0
 
     def _snapshot_g(self) -> Dict[str, torch.Tensor]:
-        """Device-side clone of the generator at the current round."""
-        return {"params": self.state.g.params.clone(), "stats": self.state.g.stats.clone()}
+        """Device-side clone of the whole generator at the current round
+        (gathered over the tensor group; every rank of it must call)."""
+        g = self.state.g
+        return tensor_lib.gather_arenas(g, self.layout.tensor_axis,
+                                        {"params": g.params.clone(), "stats": g.stats.clone()})
 
     def _evaluate_work(self, epoch: int, g_snap: Dict[str, torch.Tensor],
                        x_eval: torch.Tensor) -> Tuple[Dict, Dict]:
@@ -267,7 +281,7 @@ class MDGANTrainer:
             marks.update(fid_standard=std["fid_standard"], is_standard=std["is_standard"])
         self._log_futs.append(self._log_pool.submit(
             ckpt_lib.save_net_weights, Path(tc.weights_dir) / f"generator_{epoch}.npz",
-            self.state.g, g_snap))
+            self._g_layout, g_snap))
         log.info("eval @ %d: fid=%.2f is=%.3f", epoch, fid, is_mean)
         return marks, result
 
@@ -437,8 +451,10 @@ class MDGANTrainer:
                 swaps += 1
 
             eval_fut: Optional[Future] = None
-            if self._is_main and ((tc.log_interval > 0 and e % tc.log_interval == 0)
-                                  or e == tc.epochs - 1):
+            log_event = (tc.log_interval > 0 and e % tc.log_interval == 0) or e == tc.epochs - 1
+            if log_event and not self._is_main and self.layout.tensor_axis.active:
+                self._snapshot_g()  # rank 0's tensor group gathers its generator
+            if log_event and self._is_main:
                 self._print_log(e, m, t_start)
                 g_snap = self._snapshot_g()
                 if self._eval_pool is not None:
@@ -484,7 +500,9 @@ class MDGANTrainer:
         snap = ckpt_lib.snapshot_state(self.state, self.layout)
         if self._is_main:
             wd = Path(tc.weights_dir)
-            ckpt_lib.save_net_weights(wd / "generator_final.npz", self.state.g)
+            g_net, g_snap = snap["nets"]["g"]
+            ckpt_lib.save_net_weights(wd / "generator_final.npz", g_net,
+                                      {k: g_snap[k] for k in ("params", "stats")})
             d_net, d_snap = snap["nets"]["d"]
             d_trees = from_jax.export_arenas(
                 d_net, {k: d_snap[k] for k in ("params", "stats")}, d_snap["copies"])

@@ -25,6 +25,12 @@ Trees are nested dicts of numpy arrays, or the flat ``params/...`` and
 A stacked tree (every leaf with a leading N axis, as the JAX engine keeps its
 discriminators) is read one worker at a time with :func:`index_tree`.
 
+A tensor-parallel generator (``parallel/tensor.py``) holds slices of some
+leaves; :func:`load_into` and :func:`load_net` load whole leaves (JAX's, or
+the port's own) onto its slices (:func:`local_slice`), and
+``parallel/tensor.py:gather_arenas`` is the inverse, gathering the slices
+back into the whole generator's arenas, which export as a whole network's.
+
 :func:`inception_to_port` carries the JAX InceptionV3's variables into the
 port's ``metrics/inception.py`` (the parity tests use it).
 """
@@ -259,6 +265,17 @@ def stats_to_jax(named: Mapping[str, np.ndarray], role) -> Dict:
     return out
 
 
+def local_slice(module: torch.nn.Module, name: str, a: np.ndarray) -> np.ndarray:
+    """Leaf ``name`` of ``module``, whole in port layout -> the slice
+    ``module`` holds: this rank's along the split dim where the module is a
+    tensor-parallel generator's and the leaf is split, else ``a``."""
+    dims = getattr(module, "tensor_shards", None)
+    if not dims or name not in dims:
+        return a
+    index, size = module.tensor_rank
+    return np.ascontiguousarray(np.split(a, size, axis=dims[name])[index])
+
+
 @torch.no_grad()
 def load_into(module: torch.nn.Module, params: Mapping, stats: Mapping) -> torch.nn.Module:
     """Copy flax (params, stats) into ``module`` in place.  Copies into the
@@ -271,6 +288,7 @@ def load_into(module: torch.nn.Module, params: Mapping, stats: Mapping) -> torch
                        f"extra={sorted(set(named) - set(sd))}")
     for name, value in named.items():
         dst = sd[name]
+        value = local_slice(module, name, value)
         if tuple(dst.shape) != value.shape:
             raise ValueError(f"{role} {name}: shape {value.shape} != {tuple(dst.shape)}")
         dst.copy_(torch.from_numpy(value))
@@ -307,7 +325,7 @@ def load_net(net, params: Mapping, stats: Mapping, mu: Mapping = None,
                 continue
             views = net.views(arena, w)
             for name, value in params_to_port(pick(tree, w), role).items():
-                views[name].copy_(torch.from_numpy(value))
+                views[name].copy_(torch.from_numpy(local_slice(module, name, value)))
     if count is not None:
         net.count = int(count)
     return net

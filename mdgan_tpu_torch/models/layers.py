@@ -14,6 +14,10 @@ Port of ``mdgan_tpu/models/layers.py:22-149`` in NCHW with OIHW weights:
   ``running_var`` that holds the BIASED batch variance — a stock
   ``nn.BatchNorm2d`` stores the unbiased one (``torch_interop.py:29-33``).
   Statistics are computed in float32 whatever the input dtype, as flax does.
+  With a replica axis (``replica``, set by the MD-GAN engine when the batch
+  is split over ranks, ``core/mesh.py``) the statistics are those of the
+  whole batch: one all-reduce of (sum x, sum x^2, count) per channel, the
+  gradient summed back through it, each rank weighted by its real rows.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mdgan_tpu_torch.core.distributed import all_reduce_sum
 
 DCGAN_W_STD = 0.02
 # flax momentum 0.9 == torch momentum 0.1 (layers.py:26-30)
@@ -43,11 +49,24 @@ class BatchNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.replica = None  # the mesh's replica axis, when the batch is split
+
+    def _moments(self, xf: torch.Tensor):
+        """The batch's mean and flax's fast variance, over every replica's
+        rows."""
+        if self.replica is None or not self.replica.active:
+            mean = xf.mean(dim=(0, 2, 3))
+            return mean, torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        c = xf.shape[1]
+        count = xf.new_full((1,), xf.numel() // c)
+        sums = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                         (xf * xf).sum(dim=(0, 2, 3)), count]), self.replica)
+        mean, mean_sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+        return mean, torch.clamp(mean_sq - mean * mean, min=0.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        mean, var = self._moments(xf)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(m * mean)

@@ -47,6 +47,7 @@ def keep_masks(gen: torch.Generator, batch: int, device) -> list:
 
 class MLPDiscriminator(nn.Module):
     uses_dropout = True
+    draw_masks = staticmethod(keep_masks)
 
     def __init__(self):
         super().__init__()

@@ -22,6 +22,12 @@ JAX conventions kept here:
 * the head flattens NHWC (h, w, c) before its dense layer;
 * the minibatch statistic is tiled over the batch, not repeated (``:198-213``).
 
+Split over ranks (``core/mesh.py``): the tensor-parallel generator
+(``parallel/tensor.py``) holds slices of the synthesis biases and of the
+constant, which the forwards take whole through ``distributed.whole``; with
+the batch split over replicas (``replica``, set by the MD-GAN engine) the
+minibatch statistic is taken over every replica's rows.
+
 Noise injection is off on every training path of the JAX engines (they apply
 the generator without a ``dropout`` rng), so it is not ported; the
 ``noise_gain*`` scalars stay as parameters (zero gradient) so that leaf names
@@ -37,6 +43,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mdgan_tpu_torch.core.distributed import copy_to_group, gather_rows, whole
 
 SHAPE = (128, 128, 3)
 Z_DIM = 512
@@ -132,7 +140,7 @@ class SynthesisBlock(nn.Module):
             x = F.interpolate(x, scale_factor=2, mode="nearest")
         for conv, bias in ((self.conv0, self.bias0), (self.conv1, self.bias1)):
             y = conv(x, style)
-            x = _lrelu(y + bias[None, :, None, None].to(y.dtype))
+            x = _lrelu(y + whole(bias)[None, :, None, None].to(y.dtype))
         return x
 
 
@@ -155,7 +163,7 @@ class StyleGAN2Generator(nn.Module):
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         style = self.mapping(z)
-        x = self.const[None].expand(z.shape[0], -1, -1, -1)
+        x = whole(self.const)[None].expand(z.shape[0], -1, -1, -1)
         rgb = None
         for res in self.resolutions:
             x = getattr(self, f"b{res}")(x, style)
@@ -180,10 +188,19 @@ class ResBlock(nn.Module):
         return (y + self.skip(x)) * _INV_SQRT2
 
 
-def minibatch_stddev(x: torch.Tensor, group_size: int = 4) -> torch.Tensor:
+def minibatch_stddev(x: torch.Tensor, group_size: int = 4, replica=None) -> torch.Tensor:
     """Append the cross-sample feature stddev as one channel
     (``stylegan2.py:198-213``): groups of g samples strided b//g apart, the
-    group statistic tiled over the batch."""
+    group statistic tiled over the batch.  With a replica axis, ``x`` is
+    this rank's rows of the batch: the statistic is taken over every
+    replica's rows (gathered; the gradient summed back) and this rank's rows
+    are returned."""
+    if replica is not None and replica.active:
+        sizes = [int(n) for n in gather_rows(x.new_full((1,), x.shape[0]), replica)]
+        start = sum(sizes[:replica.index])
+        full = minibatch_stddev(copy_to_group(gather_rows(x, replica, sizes), replica),
+                                group_size)
+        return full[start:start + x.shape[0]]
     b, c, h, w = x.shape
     g = min(group_size, b)
     g = b // (b // g) if b % g else g
@@ -208,6 +225,7 @@ class StyleGAN2Discriminator(nn.Module):
             self.resolutions.append(res)
             res //= 2
         f4 = feats(base_features, 4)
+        self.replica = None  # the mesh's replica axis, when the batch is split
         self.conv_out = nn.Conv2d(f4 + 1, f4, 3, padding=1)
         self.fc = EqualDense(f4 * 16, f4)
         self.out = EqualDense(f4, 1)
@@ -217,7 +235,7 @@ class StyleGAN2Discriminator(nn.Module):
         y = _lrelu(self.from_rgb(x))
         for res in self.resolutions:
             y = getattr(self, f"b{res}")(y)
-        y = _lrelu(self.conv_out(minibatch_stddev(y)))
+        y = _lrelu(self.conv_out(minibatch_stddev(y, replica=self.replica)))
         y = y.permute(0, 2, 3, 1).reshape(b, -1)  # flatten NHWC, as the JAX head
         return self.out(_lrelu(self.fc(y))).reshape(b).float()
 

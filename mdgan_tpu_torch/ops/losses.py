@@ -5,33 +5,44 @@ becomes the numerically stable softplus forms
 
     BCE(sigmoid(x), 1) = softplus(-x)
     BCE(sigmoid(x), 0) = softplus(x)
+
+Each loss is a mean over the batch, or, with ``total`` (a batch split over
+replica ranks), this rank's part of the whole batch's mean: its rows' sum
+over ``total``, which the replicas' parts add up to.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 
-def bce_real(logits: torch.Tensor) -> torch.Tensor:
+def _mean(x: torch.Tensor, total: Optional[int]) -> torch.Tensor:
+    return x.mean() if total is None else x.sum() / total
+
+
+def bce_real(logits: torch.Tensor, total: Optional[int] = None) -> torch.Tensor:
     """Mean BCE against label 1."""
-    return F.softplus(-logits).mean()
+    return _mean(F.softplus(-logits), total)
 
 
-def bce_fake(logits: torch.Tensor) -> torch.Tensor:
+def bce_fake(logits: torch.Tensor, total: Optional[int] = None) -> torch.Tensor:
     """Mean BCE against label 0."""
-    return F.softplus(logits).mean()
+    return _mean(F.softplus(logits), total)
 
 
-def d_loss(logits_real: torch.Tensor, logits_fake: torch.Tensor) -> torch.Tensor:
+def d_loss(logits_real: torch.Tensor, logits_fake: torch.Tensor,
+           total: Optional[int] = None) -> torch.Tensor:
     """BCE(D(real), 1) + BCE(D(fake), 0) (reference ``worker.py:197-204``)."""
-    return bce_real(logits_real) + bce_fake(logits_fake)
+    return bce_real(logits_real, total) + bce_fake(logits_fake, total)
 
 
-def g_loss(logits_on_fake: torch.Tensor) -> torch.Tensor:
+def g_loss(logits_on_fake: torch.Tensor, total: Optional[int] = None) -> torch.Tensor:
     """Feedback loss BCE(D(X_g), 1) (reference ``worker.py:220-225``)."""
-    return bce_real(logits_on_fake)
+    return bce_real(logits_on_fake, total)
 
 
 # 2/255 as the float32 constant the JAX form multiplies by

@@ -13,6 +13,10 @@ moments under ``swap_opt_state``.  Two forms, as in the JAX package:
     partner's, point to point (``batch_isend_irecv``), with no all-gather
     fan-in.  ``perm`` must be an involution (random pairs, the only pattern
     the reference makes).
+
+Both run over the mesh's workers axis (``core/mesh.py``): each group of
+ranks with the same replica and tensor slot swaps on its own, so the
+replicas stay equal.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ def swap_gather(net, perm: np.ndarray, layout: RankLayout, with_opt_state: bool 
         return
     rows = torch.as_tensor(perm[layout.lo:layout.hi], device=net.params.device)
     for arena, size in _arenas(net, with_opt_state):
-        full = distributed.all_gather_cat(arena, layout.world).view(layout.num_workers, size)
+        full = distributed.all_gather_cat(arena, layout.worker_axis).view(layout.num_workers,
+                                                                          size)
         arena.view(layout.per_rank, size).copy_(full[rows])
 
 
@@ -56,19 +61,24 @@ def swap_pairs(net, perm: np.ndarray, layout: RankLayout, with_opt_state: bool =
 
     perm = np.asarray(perm, np.int64)
     n = len(perm)
-    if layout.world != n:
+    axis = layout.worker_axis
+    if not layout.distributed or axis.size != n:
         raise ValueError(
-            f"pair swap needs one worker per rank: world size {layout.world} != {n} "
+            f"pair swap needs one worker per rank: workers axis {axis.size} != {n} "
             "workers (use the gather swap instead)")
     if not np.array_equal(perm[perm], np.arange(n)):
         raise ValueError("swap permutation must be an involution (pairing)")
-    partner = int(perm[layout.rank])
-    if partner == layout.rank:
+    r, w, t = layout.coords
+    if perm[w] == w:
         return
+    partner = layout.rank_of(r, int(perm[w]), t)
     ops, landed = [], []
     for arena, _ in _arenas(net, with_opt_state):
-        buf = torch.empty_like(arena)
-        ops += [dist.P2POp(dist.isend, arena, partner), dist.P2POp(dist.irecv, buf, partner)]
+        # gloo sends from the host
+        src = arena.cpu() if arena.is_cuda and dist.get_backend(axis.group) == "gloo" else arena
+        buf = torch.empty_like(src)
+        ops += [dist.P2POp(dist.isend, src, partner, axis.group),
+                dist.P2POp(dist.irecv, buf, partner, axis.group)]
         landed.append((arena, buf))
     for req in dist.batch_isend_irecv(ops):
         req.wait()

@@ -18,9 +18,11 @@ laid out.
 Adam moments keep their storage dtype in the file (bfloat16 under
 ``--moment_dtype bfloat16``, as orbax stores JAX's).  A run sharded over
 ``torch.distributed`` ranks writes the same file as a single-process run:
-rank 0 gathers every rank's discriminators into the N-stacked leaves and
-alone writes, and each rank restores its own workers' rows, so a checkpoint
-resumes at any world size that divides N.
+the generator's tensor slices are gathered whole (``parallel/tensor.py``,
+as ``train_loop.py:298-335`` gathers JAX's), rank 0 gathers the
+discriminators of the replica-0, tensor-0 ranks into the N-stacked leaves
+and alone writes, and each rank restores its own workers' rows and its
+generator slice, so a checkpoint resumes on any mesh.
 
 Saves run on one background thread, at most two in flight
 (``train_loop.py:690-712``), from device-side clones taken by
@@ -42,6 +44,7 @@ import torch
 
 from mdgan_tpu_torch.core import distributed
 from mdgan_tpu_torch.models import from_jax
+from mdgan_tpu_torch.parallel import tensor as tensor_lib
 
 FORMAT = 1
 _MAX_IN_FLIGHT = 2
@@ -76,17 +79,25 @@ def snapshot_state(st, layout=None) -> Optional[Dict]:
     ``StandaloneState``) for a background save: the port's form of
     ``_snapshot_state`` (``train_loop.py:316-327``).  Under a process group
     (``layout``, a ``core.mesh.RankLayout``) every rank must call it: the
-    discriminators are gathered to rank 0, and the other ranks get None."""
+    generator is gathered whole over each tensor group, the discriminators
+    of the replica-0, tensor-0 ranks to rank 0, and the other ranks get
+    None."""
+    g = st.g.snapshot()
     d = st.d.snapshot()
     d["copies"] = st.d.n
     if layout is not None and layout.distributed:
+        count = g.pop("count")
+        g = {**tensor_lib.gather_arenas(st.g, layout.tensor_axis, g), "count": count}
+        r, _, t = layout.coords
+        if r != 0 or t != 0:
+            return None
         for key in ("params", "stats", "mu", "nu"):
-            d[key] = distributed.gather_cat(d[key], layout.world, layout.rank)
+            d[key] = distributed.gather_cat(d[key], layout.worker_axis)
         d["copies"] = layout.num_workers
         if not layout.is_main:
             return None
     return {"step": int(st.step), "seed": int(st.seed),
-            "nets": {"g": (st.g, st.g.snapshot()), "d": (st.d, d)}}
+            "nets": {"g": (tensor_lib.full_layout(st.g), g), "d": (st.d, d)}}
 
 
 def _net_payload(net, snap: Mapping) -> Dict:

@@ -418,5 +418,11 @@ def test_rank_layout():
     two = mesh.RankLayout(8, world=2, rank=1, distributed=True)
     assert (two.per_rank, list(two.workers), two.is_main) == (4, [4, 5, 6, 7], False)
     for kw in ({"num_replicas": 2}, {"num_tensor": 2}):
-        with pytest.raises(NotImplementedError, match="A.8b"):
-            mesh.rank_layout(8, **kw)
+        # one process holds the whole run, as JAX ignores the axes on one device
+        one = mesh.rank_layout(8, **kw)
+        assert (one.world, one.shape, list(one.workers), one.idle) == (
+            1, (1, 1, 1), list(range(8)), False)
+    # rank 5 of a (replica 2, workers 2, tensor 2) mesh: tensor innermost
+    eight = mesh.RankLayout(8, world=8, rank=5, distributed=True, num_replicas=2, num_tensor=2)
+    assert (eight.shape, eight.coords, list(eight.workers), eight.rank_of(1, 0, 1)) == (
+        (2, 2, 2), (1, 0, 1), [0, 1, 2, 3], 5)

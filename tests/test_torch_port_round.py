@@ -469,19 +469,22 @@ def test_cli_chunk_size_changes_no_metric(capsys, monkeypatch, tmp_path, stub_in
 @pytest.mark.parametrize("flag", [["--swap_impl", "ppermute"], ["--straggler_rate", "0.1"],
                                   ["--moment_dtype", "bfloat16"], ["--num_replicas", "2"],
                                   ["--num_tensor", "2"], ["--download"]])
-def test_cli_waiting_features_raise(flag, tmp_path, stub_inception, monkeypatch):
-    """The flags still waiting for a slice raise, naming their ROADMAP item.
-    The ported ones run: bfloat16 moments and stragglers (ROADMAP A.6)
-    through a round, ``--download`` (A.9) after fetching the dataset into
-    ``--data_dir`` (the fetch is recorded here; the offline fetches are
-    ``tests/test_torch_port_tools.py``'s), and the pair swap (A.8's workers
-    axis), which needs one worker a rank, raises JAX's ValueError at its
-    first swap in one process."""
+def test_cli_waiting_features_raise(flag, tmp_path, stub_inception, monkeypatch, caplog):
+    """Every flag that once waited for a slice runs now: bfloat16 moments
+    and stragglers (ROADMAP A.6) through a round; ``--num_replicas`` and
+    ``--num_tensor`` (A.8b) in one process, which ignores them with a log
+    line as JAX ignores them on one device (their ranks are
+    ``tests/test_torch_port_axes.py``'s); ``--download`` (A.9) after
+    fetching the dataset into ``--data_dir`` (the fetch is recorded here;
+    the offline fetches are ``tests/test_torch_port_tools.py``'s); and the
+    pair swap (A.8's workers axis), which needs one worker a rank, raises
+    JAX's ValueError at its first swap in one process."""
     argv = ["--epochs", "1", "--device", "cpu", "--num_workers", "2",
             "--max_examples", "40"] + flag + _dirs(tmp_path)
     if flag[0] in ("--num_replicas", "--num_tensor"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(argv)
+        with caplog.at_level("INFO", logger="mdgan_tpu_torch"):
+            assert cli.main(argv) == 0
+        assert "ignored" in caplog.text
     elif flag[0] == "--download":
         from mdgan_tpu_torch.data import download
 

@@ -74,7 +74,13 @@ with its seconds:
            resumes in one process for one round.  The kernels phase times
            Adam on the (R=2, W=2, T=2) rank's arenas (its G tensor slice of
            1,727,360 elements and 4 D) and sampling at 5 rows a worker, each
-           against its plain version and bound
+           against its plain version and bound.  Last, in this process, the
+           single-process rounds again with the convolutions' sums
+           reordered: every convolution on 2 row blocks of its batch (a
+           replica split's weight-gradient order), on ATen's own
+           convolutions in place of cuDNN's, and repeated unchanged (which
+           must be bit-identical); each against the reference round by round
+           (``reorder``: measured, not bounded)
   standalone  the CLI in --mode standalone (CIFAR10, b=10, full width, 30
            rounds, float32): 2 Adam launches a local epoch and one sampling
            launch a chunk, counted from the run; then two narrow standalone
@@ -124,6 +130,21 @@ with its seconds:
            six (dataset, role) pairs; ``cli.analyze --json`` on the mdgan
            phase's CSVs (20 rounds, a finite rate, the span ops)
 
+  bench    the port's benchmark (``mdgan_tpu_torch/cli/bench.py``): the
+           headline config (CIFAR10, N=8, b=10) with chunks cut to 100 rounds
+           and 2 timed, in bfloat16 and in float32, and ``bench_sustained``
+           for 200 rounds after 20: each JSON line printed, its numbers
+           finite, ``flops_per_round`` in [8e9, 9e10], ``mfu`` under 1.05,
+           and its Adam and sampling launches counted from the run against
+           its rounds and chunks
+  parts    ``mdgan_tpu_torch/cli/profile_parts.py`` at the headline config,
+           30 calls a part: host microseconds and device busy milliseconds
+           of each part, launches counted
+  examples ``examples_torch/train_mdgan_minimal.py`` (10 rounds) and
+           ``run-standalone-torch.sh`` (``--epochs 10 --log_interval 0``) as
+           subprocesses on the card: exit 0, their rounds, swaps, sample grid
+           and summary
+
 Then one JSON line with every kernel's record, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
 exits nonzero before that line.  Imports nothing of JAX or of ``mdgan_tpu``.
@@ -133,6 +154,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import itertools
 import json
@@ -160,6 +182,10 @@ SAMPLING_CAP_BYTES = 256 * 2 ** 20
 # the other model families' datasets and their stored image shapes (H, W, C)
 FAMILIES = {"MNIST": (28, 28, 1), "CelebA": (64, 64, 3), "FFHQ128": (128, 128, 3)}
 ROOT = Path(__file__).resolve().parent
+# the bench phase's cut of the headline config: chunks of BENCH_CHUNK rounds,
+# BENCH_TIMED of them timed a dtype; bench_sustained's run of BENCH_SUSTAINED
+# rounds after BENCH_WARM
+BENCH_CHUNK, BENCH_TIMED, BENCH_SUSTAINED, BENCH_WARM = 50, 1, 100, 20
 GOLDEN = ROOT / "artifacts/golden/cifar10_w8_r2000/weights/generator_final.npz"
 
 
@@ -182,6 +208,21 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, timeout=60)
     require(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr.strip()}")
     return proc.stdout.strip().splitlines()[0]
+
+
+def kernel_counts() -> dict:
+    """The launch counters since the last reset (``kernels_reset``)."""
+    from mdgan_tpu_torch.ops import adam, sampling
+
+    return {"adam": adam.adam_update.launches, "adam_bf16m": adam.adam_update.launches_bf16m,
+            "sampling": sampling.sample_normalize.launches}
+
+
+def kernels_reset() -> None:
+    from mdgan_tpu_torch.ops import adam, sampling
+
+    adam.adam_update.launches = adam.adam_update.launches_bf16m = 0
+    sampling.sample_normalize.launches = 0
 
 
 def adam_arena(gen, n, rec, name, bf16_moments=False):
@@ -397,7 +438,11 @@ def phase_sampling(gen):
     timed = {}
     for name, t, stack, b in (("chunk_T100", 100, cifar, 10), ("round_T1", 1, cifar, 10),
                               ("standalone_T100", 100, whole, 10),
-                              ("axes_T100_b5", 100, cifar, 5)):
+                              ("axes_T100_b5", 100, cifar, 5),
+                              # the bench phase's launches: its timed chunks
+                              # and bench_sustained's run
+                              *((f"bench_T{t}", t, cifar, 10)
+                                for t in sorted({BENCH_CHUNK, BENCH_SUSTAINED}))):
         n, s = stack.shape[:2]
         rows = t * n * b
         # fresh rows each call, more of them than the L2 holds
@@ -408,8 +453,9 @@ def phase_sampling(gen):
         p_t = time_ms(lambda: sampling.sample_normalize_plain(stack, pool[next(it) % k]), 10)
         nbytes = rows * (4 + 3072 + 4 * 3072)  # read each index and row, write float32 once
         b_ms, b_by = bound_ms(nbytes, 2 * rows * 3072)
-        timed[name] = {"rows": rows, "bytes": nbytes, "ms": k_t["ms"], "plain_ms": p_t["ms"],
-                       "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / k_t["ms"],
+        timed[name] = {"rounds_per_launch": t, "rows": rows, "bytes": nbytes,
+                       "ms": k_t["ms"], "plain_ms": p_t["ms"], "bound_ms": b_ms,
+                       "bound_by": b_by, "share_of_bound": b_ms / k_t["ms"],
                        "host_us_per_call": k_t["host_us_per_call"]}
     del cifar, whole
     torch.cuda.empty_cache()
@@ -731,13 +777,11 @@ def phase_mdgan(keep: Path, rounds: int = 20):
     every Adam launch the bf16-moment kernel, and the server CSV's
     ``n_feedbacks`` column in [1, 8].  The float32 run's span CSVs are kept
     under ``keep`` for the ``tools`` phase."""
-    from mdgan_tpu_torch.ops import adam, sampling
 
     base = ["--mode", "mdgan", "--dataset", "CIFAR10", "--num_workers", "8",
             "--batch_size", "10", "--epochs", str(rounds), "--swap_interval", "10",
             "--log_interval", "10"]
-    adam.adam_update.launches = adam.adam_update.launches_bf16m = 0
-    sampling.sample_normalize.launches = 0
+    kernels_reset()
     runs, prev = {}, (0, 0, 0)
     for name, extra, chunk in (
             ("float32", ["--compute_dtype", "float32"], 100),
@@ -747,8 +791,7 @@ def phase_mdgan(keep: Path, rounds: int = 20):
         summary, logs, rows = run_main(base + extra + ["--chunk_size", str(chunk)],
                                        server_csv=True,
                                        keep_logs=keep if name == "float32" else None)
-        now = (adam.adam_update.launches, adam.adam_update.launches_bf16m,
-               sampling.sample_normalize.launches)
+        now = tuple(kernel_counts().values())
         launched = tuple(a - b for a, b in zip(now, prev))
         prev = now
         chunks = cli_chunks(rounds, 10, 10, chunk)
@@ -786,18 +829,17 @@ def phase_standalone(rounds: int = 30, local_epochs: int = 1):
     float32 with the default chunk size: the launch counts computed apart
     from the engine, 2 Adam launches a local epoch and one sampling launch a
     chunk; then a narrow standalone round held to the CPU's."""
-    from mdgan_tpu_torch.ops import adam, sampling
 
     argv = ["--mode", "standalone", "--dataset", "CIFAR10", "--batch_size", "10",
             "--epochs", str(rounds), "--log_interval", "10", "--local_epochs",
             str(local_epochs), "--compute_dtype", "float32"]
-    adam.adam_update.launches = 0
-    sampling.sample_normalize.launches = 0
+    kernels_reset()
     summary, logs = run_main(argv)
-    launched = {"adam": adam.adam_update.launches, "sampling": sampling.sample_normalize.launches}
+    launched = kernel_counts()
     chunks = cli_chunks(rounds, 0, 10, 100, 3000)
     require(summary["all_finite"], "standalone: non-finite metrics")
-    require(launched == {"adam": 2 * local_epochs * rounds, "sampling": len(chunks)},
+    require(launched == {"adam": 2 * local_epochs * rounds, "adam_bf16m": 0,
+                         "sampling": len(chunks)},
             f"standalone: launches {launched}, want adam {2 * local_epochs * rounds} and "
             f"sampling {len(chunks)} (one per chunk {chunks})")
     require([e["epoch"] for e in summary["evals"]] == list(range(0, rounds, 10))
@@ -823,7 +865,6 @@ def phase_families(rounds: int = 10):
     --swap_interval 5) in float32 and bfloat16 and standalone in float32,
     ``rounds`` rounds on 8,000 examples each, launches counted from the
     run; then the capped gather of a 40-round chunk at 128x128x3."""
-    from mdgan_tpu_torch.ops import adam, sampling
 
     out = {}
     for dataset, shape in FAMILIES.items():
@@ -834,16 +875,15 @@ def phase_families(rounds: int = 10):
             argv = ["--mode", mode, "--dataset", dataset, "--num_workers", "8",
                     "--batch_size", "10", "--epochs", str(rounds), "--swap_interval", "5",
                     "--log_interval", "5", "--max_examples", "8000", "--compute_dtype", dtype]
-            adam.adam_update.launches = 0
-            sampling.sample_normalize.launches = 0
+            kernels_reset()
             t = time.perf_counter()
             summary, logs = run_main(argv)
             seconds = time.perf_counter() - t
-            launched = {"adam": adam.adam_update.launches,
-                        "sampling": sampling.sample_normalize.launches}
+            launched = kernel_counts()
             n = 8 if mode == "mdgan" else 1
             chunks = cli_chunks(rounds, 5 if mode == "mdgan" else 0, 5, 100, 3000)
-            want = {"adam": 2 * rounds, "sampling": sampling_launches(chunks, n, shape)}
+            want = {"adam": 2 * rounds, "adam_bf16m": 0,
+                    "sampling": sampling_launches(chunks, n, shape)}
             require(summary["all_finite"], f"{dataset} {name}: non-finite losses")
             require(launched == want, f"{dataset} {name}: launches {launched}, want {want} "
                                       f"(chunks {chunks})")
@@ -881,9 +921,9 @@ def _capped_gather_check(rounds: int = 40):
     rng = np.random.default_rng(5)
     shards = eng.shard_data(rng.integers(0, 256, (8, 200, *shape), dtype=np.uint8))
     idx = eng.put_indices(rng.integers(0, 200, (rounds, 8, 10)), 200)
-    sampling.sample_normalize.launches = 0
+    kernels_reset()
     got = torch.stack(list(eng._real_batches(shards, idx)))
-    launched = sampling.sample_normalize.launches
+    launched = kernel_counts()["sampling"]
     want = sampling.sample_normalize_plain(shards, idx)
     require(launched == sampling_launches([rounds], 8, shape),
             f"capped gather: {launched} launches, want {sampling_launches([rounds], 8, shape)}")
@@ -933,7 +973,6 @@ def phase_trainer(keep: Path):
 
     from mdgan_tpu_torch.cli import train as cli
     from mdgan_tpu_torch.engine import train_loop
-    from mdgan_tpu_torch.ops import adam, sampling
 
     def run(root, mode, epochs, *extra):
         argv = ["--mode", mode, "--dataset", "CIFAR10", "--num_workers", "8",
@@ -959,8 +998,7 @@ def phase_trainer(keep: Path):
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         for mode in ("mdgan", "standalone"):
-            adam.adam_update.launches = 0
-            sampling.sample_normalize.launches = 0
+            kernels_reset()
             torch.use_deterministic_algorithms(True)
             try:
                 full, summary = run(root / mode / "full", mode, 8)
@@ -968,8 +1006,7 @@ def phase_trainer(keep: Path):
                 resumed, _ = run(root / mode / "split", mode, 8, "--resume")
             finally:
                 torch.use_deterministic_algorithms(False)
-            launched = {"adam": adam.adam_update.launches,
-                        "sampling": sampling.sample_normalize.launches}
+            launched = {k: kernel_counts()[k] for k in ("adam", "sampling")}
             require(min(launched.values()) > 0, f"trainer {mode}: launches {launched}")
             differ = [k for k, t in arenas(full.state).items()
                       if not torch.equal(t, arenas(resumed.state)[k])]
@@ -1241,13 +1278,10 @@ def _tools_downloads(root: Path):
 def _tools_cli(argv, shape, swap_interval, log_interval, rounds, n=8):
     """The CLI on the card: finite losses, 2 Adam launches a round, the
     sampling launches of its chunks; returns (summary, launches)."""
-    from mdgan_tpu_torch.ops import adam, sampling
 
-    adam.adam_update.launches = adam.adam_update.launches_bf16m = 0
-    sampling.sample_normalize.launches = 0
+    kernels_reset()
     summary, _ = run_main(argv)
-    launched = {"adam": adam.adam_update.launches, "adam_bf16m": adam.adam_update.launches_bf16m,
-                "sampling": sampling.sample_normalize.launches}
+    launched = kernel_counts()
     chunks = cli_chunks(rounds, swap_interval, log_interval, 100)
     want = {"adam": 2 * rounds, "adam_bf16m": 0,
             "sampling": sampling_launches(chunks, n, shape)}
@@ -1481,23 +1515,22 @@ def profile_rounds(eng, shards, sampler, warm: int, timed: int, rounds: int):
                  "per_round": e.count / rounds} for e in top]}
 
 
-def phase_profile(rounds: int = 5):
+def phase_profile(rounds: int = 3):
     """Where a round's time goes at full width: CIFAR10 (DCGAN-32) MD-GAN
     with N=8 in float32 and bfloat16 and the standalone round in float32
-    (20 timed rounds), then the same three for each other family on 8,000
-    examples (6 timed rounds, 2 profiled).  Adam and sampling launches a
-    round are counted in the timed rounds."""
+    (20 timed rounds, 3 profiled), then the same three for each other
+    family on 8,000 examples (4 timed rounds, 2 profiled).  Adam and
+    sampling launches a round are counted in the timed rounds."""
     from mdgan_tpu_torch.core.config import TrainConfig
     from mdgan_tpu_torch.core.registry import get as get_spec
     from mdgan_tpu_torch.data.partitioner import shard_data
     from mdgan_tpu_torch.data.sampler import ShardSampler
     from mdgan_tpu_torch.engine.mdgan import MDGANEngine
     from mdgan_tpu_torch.engine.standalone import StandaloneEngine
-    from mdgan_tpu_torch.ops import adam, sampling
 
     out = {}
     for dataset, max_examples, counts in (("CIFAR10", None, (10, 20, rounds)),
-                                          *((d, 8000, (2, 6, 2)) for d in FAMILIES)):
+                                          *((d, 8000, (2, 4, 2)) for d in FAMILIES)):
         spec = get_spec(dataset)
         data = spec.load("data", max_examples=max_examples)[0]
         shards_np, _ = shard_data(data, 8, iid=True, seed=0)
@@ -1512,11 +1545,11 @@ def phase_profile(rounds: int = 5):
                 eng = MDGANEngine(spec, TrainConfig(compute_dtype=dtype), 8)
                 shards = eng.shard_data(shards_np)
                 sampler = ShardSampler(8, shards_np.shape[1], 10, seed=0)
-            adam.adam_update.launches = sampling.sample_normalize.launches = 0
+            kernels_reset()
             rec[name] = profile_rounds(eng, shards, sampler, *counts)
-            total = sum(counts)
-            rec[name]["adam_launches_per_round"] = adam.adam_update.launches / total
-            rec[name]["sampling_launches"] = sampling.sample_normalize.launches
+            total, launched = sum(counts), kernel_counts()
+            rec[name]["adam_launches_per_round"] = launched["adam"] / total
+            rec[name]["sampling_launches"] = launched["sampling"]
             del shards
         if dataset == "CIFAR10":
             out.update(rec)
@@ -1536,21 +1569,16 @@ def rank_program(argv) -> int:
 
     from mdgan_tpu_torch.cli import train
     from mdgan_tpu_torch.core import distributed
-    from mdgan_tpu_torch.ops import adam, sampling
 
     out, argv = Path(argv[0]), argv[1:]
     distributed.maybe_initialize()
     host_ms = _round_host_ms()
-    adam.adam_update.launches = adam.adam_update.launches_bf16m = 0
-    sampling.sample_normalize.launches = 0
+    kernels_reset()
     torch.use_deterministic_algorithms(True)
     rc = train.main(argv)
     out.mkdir(parents=True, exist_ok=True)
     (out / f"rank_{os.environ['RANK']}.json").write_text(json.dumps(
-        {"launches": {"adam": adam.adam_update.launches,
-                      "adam_bf16m": adam.adam_update.launches_bf16m,
-                      "sampling": sampling.sample_normalize.launches},
-         "host_ms_per_round": host_ms}))
+        {"launches": kernel_counts(), "host_ms_per_round": host_ms}))
     return rc
 
 
@@ -1722,17 +1750,25 @@ AXES_ENGINE_ROUNDS, AXES_TIMED_ROUNDS = 2, 3
 AXES_METRICS = ("mean_d_loss", "g_feedback_loss", "feedback_norm")
 
 
+@functools.lru_cache(maxsize=1)
+def _headline_shards():
+    """CIFAR10's 50,000 examples split over N=8 (loaded once a process)."""
+    from mdgan_tpu_torch.core.registry import get as get_spec
+    from mdgan_tpu_torch.data.partitioner import shard_data
+
+    return shard_data(get_spec("CIFAR10").load("data")[0], 8, iid=True, seed=0)[0]
+
+
 def _headline_engine(layout=None):
     """The headline MD-GAN engine (CIFAR10, N=8, b=10, full width, float32)
     in ``layout`` (default: this process's), its state, shards and sampler."""
     from mdgan_tpu_torch.core.config import TrainConfig
     from mdgan_tpu_torch.core.registry import get as get_spec
-    from mdgan_tpu_torch.data.partitioner import shard_data
     from mdgan_tpu_torch.data.sampler import ShardSampler
     from mdgan_tpu_torch.engine.mdgan import MDGANEngine
 
     spec = get_spec("CIFAR10")
-    shards_np, _ = shard_data(spec.load("data")[0], 8, iid=True, seed=0)
+    shards_np = _headline_shards()
     eng = MDGANEngine(spec, TrainConfig(compute_dtype="float32"), 8, layout=layout)
     return eng, eng.init_state(1), eng.shard_data(shards_np), ShardSampler(
         8, shards_np.shape[1], 10, seed=0)
@@ -1756,6 +1792,96 @@ def adam_bound(steps: int, lr: float = 2e-4, b2: float = 0.999) -> float:
     return 2 * lr * sum(math.sqrt((1 - b2 ** t) / (1 - b2)) for t in range(1, steps + 1)) + 1e-6
 
 
+def engine_rounds():
+    """``AXES_ENGINE_ROUNDS`` rounds of the headline engine in this process:
+    after each, the generator's and discriminators' parameters and the
+    metrics, on the host."""
+    import torch
+
+    eng, st, shards, sampler = _headline_engine()
+    out = []
+    for _ in range(AXES_ENGINE_ROUNDS):
+        m = eng.run_rounds(st, shards, sampler, 1)
+        out.append({"g": st.g.params.to("cpu", copy=True),
+                    "d": st.d.params.to("cpu", copy=True),
+                    **{k: m[k].cpu() for k in AXES_METRICS}})
+    del eng, st, shards
+    torch.cuda.empty_cache()
+    return out
+
+
+def round_diff(got, want) -> dict:
+    """One round of ``engine_rounds`` against another: the metrics' largest
+    relative error, and per network the largest parameter difference and
+    the share of parameters off by more than rtol 1e-2."""
+    import torch
+
+    rec = {"metric_rel_err": {k: float(((got[k] - want[k]).abs() / want[k].abs()).max())
+                              for k in AXES_METRICS}}
+    for net in ("g", "d"):
+        rec[f"{net}_max_abs_diff"] = float((got[net] - want[net]).abs().max())
+        rec[f"{net}_off_share"] = 1.0 - float(torch.isclose(
+            got[net], want[net], rtol=1e-2, atol=1e-6).float().mean())
+    return rec
+
+
+@contextlib.contextmanager
+def conv_row_blocks(blocks: int):
+    """Every ``Conv2d`` and ``ConvTranspose2d`` forward run on ``blocks``
+    row blocks of its batch and concatenated: each image's sums as before,
+    each weight gradient summed over the blocks, as a replica split sums it
+    over its ranks."""
+    import torch
+    from torch import nn
+
+    saved = {cls: cls.forward for cls in (nn.Conv2d, nn.ConvTranspose2d)}
+
+    def split(forward):
+        def blocked(self, x, *args, **kwargs):
+            return torch.cat([forward(self, part, *args, **kwargs) for part in x.chunk(blocks)])
+        return blocked
+
+    for cls, forward in saved.items():
+        cls.forward = split(forward)
+    try:
+        yield
+    finally:
+        for cls, forward in saved.items():
+            cls.forward = forward
+
+
+def reordered_rounds(ref):
+    """Whether reordering the convolutions' sums alone, in one process,
+    parts the second round as far as the split layouts do: the headline
+    engine's rounds (float32, TF32 off) against ``ref`` (the same rounds,
+    deterministic) with the convolutions on 2 row blocks (deterministic),
+    on ATen's own convolutions in place of cuDNN's, and repeated as they
+    were (deterministic: must be bit-identical)."""
+    import torch
+
+    variants = {}
+    with no_tf32():
+        torch.use_deterministic_algorithms(True)
+        try:
+            variants["repeat"] = engine_rounds()
+            with conv_row_blocks(2):
+                variants["conv_rows_2"] = engine_rounds()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.enabled = False
+        try:
+            variants["aten_conv"] = engine_rounds()
+        finally:
+            torch.backends.cudnn.enabled = True
+    out = {name: [round_diff(g, w) for g, w in zip(rounds, ref)]
+           for name, rounds in variants.items()}
+    require(all(torch.equal(g[k], w[k]) for g, w in zip(variants["repeat"], ref) for k in g),
+            "reorder: a deterministic repeat of the engine rounds differs")
+    require(all(math.isfinite(v) for recs in out.values() for rec in recs
+                for v in rec["metric_rel_err"].values()), f"reorder: {out}")
+    return out
+
+
 def axes_program(argv) -> int:
     """One rank of the ``axes`` phase, started by ``torch.distributed.run``:
     ``<out> <R> <T> <CLI argv>``.  In the (R, W, T) mesh of the process
@@ -1772,7 +1898,6 @@ def axes_program(argv) -> int:
     from mdgan_tpu_torch.cli import train
     from mdgan_tpu_torch.core import distributed
     from mdgan_tpu_torch.core.mesh import rank_layout
-    from mdgan_tpu_torch.ops import adam, sampling
     from mdgan_tpu_torch.parallel import tensor as tensor_lib
 
     out, r, t, argv = Path(argv[0]), int(argv[1]), int(argv[2]), argv[3:]
@@ -1802,12 +1927,9 @@ def axes_program(argv) -> int:
         rec["host_ms_per_round"] = (time.perf_counter() - t0) / AXES_TIMED_ROUNDS * 1e3
         del eng, st, shards
         torch.cuda.empty_cache()
-    adam.adam_update.launches = adam.adam_update.launches_bf16m = 0
-    sampling.sample_normalize.launches = 0
+    kernels_reset()
     rc = train.main(argv + ["--num_replicas", str(r), "--num_tensor", str(t)])
-    rec["launches"] = {"adam": adam.adam_update.launches,
-                       "adam_bf16m": adam.adam_update.launches_bf16m,
-                       "sampling": sampling.sample_normalize.launches}
+    rec["launches"] = kernel_counts()
     (out / f"rank_{rank}.json").write_text(json.dumps(rec))
     return rc
 
@@ -1828,8 +1950,8 @@ def phase_axes(rounds: int = 10, n: int = 8):
     CLI's 10 rounds (a swap at 5, checkpoints at 5 and 9) must end with
     finite metrics, 2 Adam launches a round and one sampling launch a chunk
     on every rank of the mesh (none on an idle one), and the final
-    checkpoint resumes in one process for one round."""
-    import numpy as np
+    checkpoint resumes in one process for one round.  Then the reorder
+    check of ``reordered_rounds``."""
     import torch
 
     cards = torch.cuda.device_count()
@@ -1840,15 +1962,7 @@ def phase_axes(rounds: int = 10, n: int = 8):
     with no_tf32():
         torch.use_deterministic_algorithms(True)
         try:
-            eng, st, shards, sampler = _headline_engine()
-            ref = []
-            for _ in range(AXES_ENGINE_ROUNDS):
-                m = eng.run_rounds(st, shards, sampler, 1)
-                ref.append({"g": st.g.params.to("cpu", copy=True),
-                            "d": st.d.params.to("cpu", copy=True),
-                            **{k: m[k].cpu() for k in AXES_METRICS}})
-            del eng, st, shards
-            torch.cuda.empty_cache()
+            ref = engine_rounds()
         finally:
             torch.use_deterministic_algorithms(False)
     out = {}
@@ -1889,13 +2003,7 @@ def phase_axes(rounds: int = 10, n: int = 8):
                 got["d"] = torch.cat([next(e["rounds"][i]["d"] for e in eng_recs.values()
                                            if tuple(e["coords"]) == (0, w, 0))
                                       for w in range(shape[1])])
-                rec = {"metric_rel_err": {k: float(((got[k] - want[k]).abs()
-                                                    / want[k].abs()).max())
-                                          for k in AXES_METRICS}}
-                for net in ("g", "d"):
-                    rec[f"{net}_max_abs_diff"] = float((got[net] - want[net]).abs().max())
-                    rec[f"{net}_off_share"] = 1.0 - float(torch.isclose(
-                        got[net], want[net], rtol=1e-2, atol=1e-6).float().mean())
+                rec = round_diff(got, want)
                 worst = max(rec["metric_rel_err"].values())
                 require(worst <= AXES_METRIC_RTOL[i], f"axes {name}: round {i} metrics rel "
                         f"err {worst} > {AXES_METRIC_RTOL[i]} ({rec})")
@@ -1933,7 +2041,150 @@ def phase_axes(rounds: int = 10, n: int = 8):
             "seconds": seconds}
     nccl = [name for name, rec in out.items() if rec["backend"] == ["nccl"]]
     return {"cards": cards, "layouts": out, "chunks": chunks,
-            "nccl_layouts": nccl or f"not run ({cards} card{'s' if cards != 1 else ''})"}
+            "nccl_layouts": nccl or f"not run ({cards} card{'s' if cards != 1 else ''})",
+            "reorder": reordered_rounds(ref)}
+
+
+HEADLINE_SHAPE = (32, 32, 3)
+
+
+def check_bench_line(row: dict, what: str) -> None:
+    """A line of the port's bench: finite numbers, the FLOPs of a headline
+    round in ``tests/test_bench_artifacts.py``'s band, ``mfu`` under 1.05."""
+    require(all(math.isfinite(v) for v in row.values() if isinstance(v, float)),
+            f"{what}: a non-finite number in {row}")
+    require(8e9 < row["flops_per_round"] < 9e10, f"{what}: flops_per_round "
+            f"{row['flops_per_round']} outside [8e9, 9e10]")
+    require(row["value"] > 0 and 0 < row["mfu"] < 1.05, f"{what}: value {row['value']}, "
+            f"mfu {row['mfu']}")
+
+
+def phase_bench(chunk: int = BENCH_CHUNK, timed: int = BENCH_TIMED,
+                sustained: int = BENCH_SUSTAINED, warm: int = BENCH_WARM):
+    """The port's benchmark (``mdgan_tpu_torch/cli/bench.py``): the headline
+    config with its chunks cut to ``chunk`` rounds and ``timed`` timed
+    chunks (a temporary ``CONFIGS`` entry, as ``bench_scaling`` makes one),
+    in bfloat16 and in float32, then ``bench_sustained`` for ``sustained``
+    rounds after ``warm``.  Each line printed, checked (``check_bench_line``)
+    and its kernel launches counted from its run against the count of its
+    rounds and chunks."""
+    from mdgan_tpu_torch.cli import bench
+
+    dataset, n, b, _, _, max_ex = bench.CONFIGS["headline"]
+    lines, launches = {}, {}
+    bench.CONFIGS["_smoke"] = (dataset, n, b, chunk, timed, max_ex)
+    try:
+        for dtype in ("bfloat16", "float32"):
+            kernels_reset()
+            row = bench.bench_mdgan("_smoke", compute_dtype=dtype)
+            launches[f"bench_{dtype}"] = kernel_counts()
+            print(json.dumps(row), flush=True)
+            check_bench_line(row, f"bench {dtype}")
+            # a warm chunk, the timed chunks, the round FlopCounterMode counts
+            chunks = [chunk] * (1 + timed) + [1]
+            want = {"adam": 2 * sum(chunks), "adam_bf16m": 0,
+                    "sampling": sampling_launches(chunks, n, HEADLINE_SHAPE)}
+            require(launches[f"bench_{dtype}"] == want, f"bench {dtype}: launches "
+                    f"{launches[f'bench_{dtype}']}, want {want}")
+            require(row["compute_dtype"] == dtype and row["steps_timed"] == chunk * timed,
+                    f"bench {dtype}: {row}")
+            lines[dtype] = row
+    finally:
+        bench.CONFIGS.pop("_smoke", None)
+    kernels_reset()
+    row = bench.bench_sustained(rounds=sustained, warm_rounds=warm)
+    launches["bench_sustained"] = kernel_counts()
+    print(json.dumps(row), flush=True)
+    check_bench_line(row, "bench sustained")
+    # each run one chunk (no log, swap or checkpoint event before its last
+    # round), then the counted round
+    require(max(warm, sustained) <= bench.CONFIGS["headline"][3] and sustained < 5000,
+            "bench sustained: a run of more than one chunk")
+    want = {"adam": 2 * (warm + sustained + 1), "adam_bf16m": 0,
+            "sampling": sampling_launches([warm, sustained, 1], n, HEADLINE_SHAPE)}
+    require(launches["bench_sustained"] == want,
+            f"bench sustained: launches {launches['bench_sustained']}, want {want}")
+    lines["sustained"] = row
+    return lines, launches
+
+
+def phase_parts(iters: int = 10, profiled: int = 3):
+    """``mdgan_tpu_torch/cli/profile_parts.py`` at the headline config: every
+    part's host microseconds and device busy milliseconds a call finite,
+    each launch counted (3 warm-up calls, ``iters`` host-timed and
+    ``profiled`` profiled a part: the profiler's window is the phase's main
+    cost)."""
+    from mdgan_tpu_torch.cli import profile_parts
+
+    kernels_reset()
+    rec = profile_parts.profile(8, 10, iters, profiled=profiled)
+    rec["profiled_calls"] = profiled
+    launched = kernel_counts()
+    calls = 3 + iters + profiled
+    # G fwd+VJP+Adam and the D region one Adam launch a call, the round two;
+    # the D region and the round one sampling launch a call
+    want = {"adam": 4 * calls, "adam_bf16m": 0, "sampling": 2 * calls}
+    require(launched == want, f"parts: launches {launched}, want {want}")
+    for name in rec["components_us"]:
+        host, dev = rec["components_us"][name], rec["components_device_ms"][name]
+        # a profiler window misses a few dozen kernels: maybe all the noop's
+        require(math.isfinite(host) and dev is not None
+                and (dev > 0 or name == profile_parts.NOOP),
+                f"parts: {name} host {host} us, device {dev} ms")
+    return rec, launched
+
+
+def phase_examples(rounds: int = 10):
+    """``examples_torch/train_mdgan_minimal.py`` (the headline config, chunks
+    of 5, a swap every 5 rounds) and ``run-standalone-torch.sh`` (its
+    shared-args.sh flags, ``--epochs`` cut) as subprocesses on the card, side
+    by side: exit 0, their printed rounds and swaps, the sample grid, the
+    summary."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHON=sys.executable)
+
+    def run(what, argv, cwd):
+        t = time.perf_counter()
+        proc = subprocess.run(argv, cwd=cwd, env=env, capture_output=True, text=True,
+                              timeout=600)
+        require(proc.returncode == 0, f"{what} exited {proc.returncode}:\n"
+                f"{proc.stderr[-3000:]}")
+        return proc.stdout, time.perf_counter() - t
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        minimal, script = Path(tmp) / "minimal", Path(tmp) / "standalone"
+        minimal.mkdir()
+        script.mkdir()
+        with ThreadPoolExecutor(2) as pool:
+            first = pool.submit(run, "train_mdgan_minimal.py", [
+                sys.executable, str(ROOT / "examples_torch" / "train_mdgan_minimal.py"),
+                "--rounds", str(rounds), "--chunk_size", "5", "--swap_interval", "5"], minimal)
+            second = pool.submit(run, "run-standalone-torch.sh", [
+                "bash", str(ROOT / "run-standalone-torch.sh"), "--epochs", str(rounds),
+                "--log_interval", "0", *out_dirs(script)], script)
+            (stdout, seconds), (script_out, script_s) = first.result(), second.result()
+
+        printed = [ln for ln in stdout.splitlines() if ln.startswith("round")]
+        png = minimal / "mdgan_samples.png"
+        require([int(ln.split()[1]) for ln in printed] == list(range(5, rounds + 1, 5))
+                and all("d_loss=" in ln and "g_feedback_loss=" in ln for ln in printed)
+                and stdout.count("swapped discriminator pairs") == rounds // 5,
+                f"train_mdgan_minimal.py printed:\n{stdout}")
+        # 64 samples, 8 a row
+        require(_png_size(png) == (8 * 32, 8 * 32), f"{png}: {_png_size(png)}")
+        out["train_mdgan_minimal"] = {"seconds": seconds, "rounds": printed}
+
+        summary = json.loads(script_out.strip().splitlines()[-1])
+        require(summary["rounds"] == rounds and summary["all_finite"]
+                and summary["compute_dtype"] == "bfloat16"
+                and summary["device"] == torch.cuda.get_device_name(0),
+                f"run-standalone-torch.sh: {summary}")
+        out["run_standalone_torch"] = {"seconds": script_s, "summary": summary}
+    return out
 
 
 def main() -> int:
@@ -2020,6 +2271,10 @@ def main() -> int:
         print(f"axes {name}: {rec['ranks']} ranks, (R, W, T) = {tuple(rec['shape_RWT'])}, "
               f"idle {rec['idle_ranks']}, over {'/'.join(rec['backend'])}", flush=True)
     print(f"axes over NCCL, one rank a card: {axes_rec['nccl_layouts']}", flush=True)
+    for name, recs in axes_rec["reorder"].items():
+        print(f"reorder {name}: metrics rel err by round "
+              f"{[max(r['metric_rel_err'].values()) for r in recs]}, G off share "
+              f"{[r['g_off_share'] for r in recs]}", flush=True)
 
     t = time.perf_counter()
     rec, standalone_launches = phase_standalone()
@@ -2042,6 +2297,20 @@ def main() -> int:
     rec = phase_profile()
     emit({"phase": "profile", "seconds": time.perf_counter() - t, "card": smi, **rec})
 
+    t = time.perf_counter()
+    bench_lines, bench_launches = phase_bench()
+    emit({"phase": "bench", "seconds": time.perf_counter() - t, "card": smi,
+          "lines": bench_lines, "launches": bench_launches})
+
+    t = time.perf_counter()
+    parts_rec, parts_launches = phase_parts()
+    emit({"phase": "parts", "seconds": time.perf_counter() - t, "card": smi,
+          "launches": parts_launches, **parts_rec})
+
+    t = time.perf_counter()
+    rec = phase_examples()
+    emit({"phase": "examples", "seconds": time.perf_counter() - t, "card": smi, **rec})
+
     # each path's launches, counted in its run
     paths = {"mdgan": {k: mdgan_launches["float32"][k] + mdgan_launches["bfloat16"][k]
                        for k in ("adam", "adam_bf16m", "sampling")},
@@ -2052,7 +2321,7 @@ def main() -> int:
              "axes": {k: sum(c[k] for rec in axes_rec["layouts"].values()
                              for c in rec["launches_per_rank"])
                       for k in ("adam", "adam_bf16m", "sampling")},
-             **tools_launches}
+             **tools_launches, **bench_launches, "parts": parts_launches}
     sa_samp = samp_rec["timed"]["standalone_T100"]
     main_adam = {k: adam_rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     main_samp = {k: samp_rec[k] for k in ("ms", "plain_ms", "bound_ms")}
@@ -2075,6 +2344,15 @@ def main() -> int:
                      "mnist_download": {k: mnist_samp[k] for k in (
                          "ms", "plain_ms", "bound_ms", "rounds_per_launch")}},
     }
+    # the bench's lines and the parts run the headline round: its arenas, and
+    # the gather at each path's main launch (the bench's timed chunks,
+    # bench_sustained's run, a round a launch in the parts)
+    for path, samp in (("bench_bfloat16", f"bench_T{BENCH_CHUNK}"),
+                       ("bench_float32", f"bench_T{BENCH_CHUNK}"),
+                       ("bench_sustained", f"bench_T{BENCH_SUSTAINED}"), ("parts", "round_T1")):
+        by_path["adam"][path] = dict(main_adam)
+        by_path["sampling"][path] = {k: samp_rec["timed"][samp][k] for k in (
+            "ms", "plain_ms", "bound_ms", "rounds_per_launch")}
     # each family's paths: the kernels' times at that path's shapes (Adam a
     # round or a local epoch, sampling a launch), launches from its CLI runs
     for dataset in FAMILIES:

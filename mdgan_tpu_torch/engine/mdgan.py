@@ -232,6 +232,7 @@ class MDGANEngine(EngineBase):
         lo_row = sum(self._row_sizes[:self._replica.index])
         self._rows = slice(lo_row, lo_row + self._row_sizes[self._replica.index])
         self._split = self._replica.active
+        self._total = b if self._split else None  # losses: a mean, or a part of one
         self.k = k_batches(num_workers)
         w = torch.arange(self.layout.lo, self.layout.hi, device=self.device)
         self._g_assign = w % self.k          # X_g batch per worker (server.py:238)
@@ -361,56 +362,94 @@ class MDGANEngine(EngineBase):
         parts: its workers' losses (summed over its rows, over the global b,
         under a replica split), the feedbacks' squared sum ``fb_sq`` and its
         rows of ``x_eval``; :meth:`_whole` makes them the run's."""
-        cfg, n, k, b = self.cfg, self.n, self.k, self.cfg.batch_size
-        lo, nl = self.layout.lo, self.layout.per_rank
-        total = b if self._split else None  # losses: a mean, or a part of one
         if z is None:
             z = self.latents(st)
         z = self._my_rows(z)
-        if fb_mask is None and cfg.straggler_rate > 0.0:
+        if fb_mask is None and self.cfg.straggler_rate > 0.0:
             fb_mask = self.straggler_mask(st)
-        g_net, d_net = st.g.modules[0], st.d.modules
-
-        def d_fwd(i, x, *path):
-            return self._d_forward(d_net[i], x, st.seed, st.step, path, masks)
 
         # (1) generate k*b fakes in one forward; the graph waits for (5)
         with self._autocast():
-            x_all = g_net(z)
-        img_shape = x_all.shape[1:]
-        x_k = x_all.detach().view(k, -1, *img_shape)
+            x_all = st.g.modules[0](z)
+        x_k = x_all.detach().view(self.k, -1, *x_all.shape[1:])
+        # (2)-(4) local D steps and feedback, then (5) the G step
+        mean_d_loss, g_losses, feedback = self._d_region(st, real, x_k, masks)
+        fb_sq = self._g_update(st, x_all, feedback, fb_mask)
+        st.step += 1
+        out = {
+            "mean_d_loss": mean_d_loss,
+            "g_feedback_loss": g_losses,
+            "fb_sq": fb_sq,
+            "x_eval": x_all.detach(),
+        }
+        if fb_mask is not None:
+            out["n_feedbacks"] = fb_mask.sum().to(torch.int32)
+        return out
 
-        # (2) fake batches per worker, (3) real batches and local D steps
+    def _d_fwd(self, st: MDGANState, i: int, x: torch.Tensor, masks: Optional[Masks],
+               *path: int) -> torch.Tensor:
+        """This rank's discriminator ``i`` on ``x``, its dropout keyed by
+        (step, *path)."""
+        return self._d_forward(st.d.modules[i], x, st.seed, st.step, path, masks)
+
+    def _d_region(self, st: MDGANState, real: torch.Tensor, x_k: torch.Tensor,
+                  masks: Optional[Masks] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Steps (2)-(4) on this rank's workers (``_d_region``,
+        ``mdgan.py:203-310``): worker n's ``local_epochs`` Adam steps on its
+        real batch and fake batch ``(n+1) % k`` of ``x_k`` (k, b_r, C, H, W),
+        one Adam launch a local epoch for all of them, then its feedback on
+        batch ``n % k`` (:meth:`_feedback`).  Returns ``mean_d_loss`` and
+        ``g_feedback_loss`` (N/W,) and the feedbacks (N/W, b_r, C, H, W)."""
+        cfg, lo, nl = self.cfg, self.layout.lo, self.layout.per_rank
         x_d = x_k[self._d_assign]
         d_loss_sum = torch.zeros(nl, device=self.device)
         for l in range(cfg.local_epochs):
             st.d.zero_grad()
             with self._autocast():
-                loss = torch.stack([losses.d_loss(d_fwd(i, real[i], l, lo + i, 0),
-                                                  d_fwd(i, x_d[i], l, lo + i, 1), total)
+                loss = torch.stack([losses.d_loss(self._d_fwd(st, i, real[i], masks, l, lo + i, 0),
+                                                  self._d_fwd(st, i, x_d[i], masks, l, lo + i, 1),
+                                                  self._total)
                                     for i in range(nl)])
             loss.sum().backward()
             distributed.all_reduce_(st.d.grads, self._replica)
             st.d.adam_step(cfg.discriminator_opt)
             d_loss_sum += loss.detach()
-        mean_d_loss = d_loss_sum / cfg.local_epochs
+        g_losses, feedback = self._feedback(st, x_k[self._g_assign], masks)
+        return d_loss_sum / cfg.local_epochs, g_losses, feedback
 
-        # (4) feedback through the updated discriminators
-        x_g = x_k[self._g_assign].requires_grad_(True)
+    def _feedback(self, st: MDGANState, x_g: torch.Tensor, masks: Optional[Masks] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Step (4): worker n's ``BCE(D_n(x_g[n]), 1)`` through its updated
+        discriminator and the gradient with respect to ``x_g[n]``; x_g:
+        (N/W, b_r, C, H, W), a tensor of its own.  Returns the losses (N/W,)
+        and the feedbacks."""
+        lo, nl = self.layout.lo, self.layout.per_rank
+        x_g = x_g.requires_grad_(True)
         with self._autocast():
-            g_losses = torch.stack([losses.g_loss(d_fwd(i, x_g[i], cfg.local_epochs, lo + i),
-                                                  total)
-                                    for i in range(nl)])
+            g_losses = torch.stack([
+                losses.g_loss(self._d_fwd(st, i, x_g[i], masks, self.cfg.local_epochs, lo + i),
+                              self._total)
+                for i in range(nl)])
         (feedback,) = torch.autograd.grad(g_losses.sum(), x_g)
+        return g_losses.detach(), feedback
+
+    def _g_update(self, st: MDGANState, x_all: torch.Tensor, feedback: torch.Tensor,
+                  fb_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Step (5): the feedbacks (N/W, b_r, C, H, W), less the stragglers'
+        under ``fb_mask``, scatter-added onto their source batches of
+        ``x_all``'s k*b_r fakes and summed over the workers, then one G
+        backward through ``x_all``'s graph at 1/(b*N), or 1/(b*|S|) under
+        stragglers, and the G Adam step.  Returns the feedbacks' squared
+        sum over the workers, taken before the drop."""
+        b, n, lo, nl = self.cfg.batch_size, self.n, self.layout.lo, self.layout.per_rank
         fb_sq = feedback.square().sum()
         if fb_mask is not None:
             # the server's straggler discard: late feedbacks contribute zero
             keep = fb_mask[lo:lo + nl].to(feedback.dtype)
             feedback = feedback * keep.view(-1, *([1] * (feedback.dim() - 1)))
-
-        # (5) scatter-add onto the source batches, summed over the workers,
-        # then one G backward at 1/(b*N), or 1/(b*|S|) under stragglers
-        cot = torch.zeros_like(x_k).index_add_(0, self._g_assign, feedback)
+        cot = torch.zeros_like(x_all).view(self.k, -1, *x_all.shape[1:]).index_add_(
+            0, self._g_assign, feedback)
         if self.layout.worker_axis.active:
             cot, fb_sq = self._sum_over_workers(cot, fb_sq)
         st.g.zero_grad()
@@ -420,17 +459,8 @@ class MDGANEngine(EngineBase):
             scale = 1.0 / (b * fb_mask.sum().to(torch.float32))
             x_all.backward((cot.view_as(x_all).float() * scale).to(x_all.dtype))
         distributed.all_reduce_(st.g.grads, self._replica)
-        st.g.adam_step(cfg.generator_opt)
-        st.step += 1
-        out = {
-            "mean_d_loss": mean_d_loss,
-            "g_feedback_loss": g_losses.detach(),
-            "fb_sq": fb_sq,
-            "x_eval": x_all.detach(),
-        }
-        if fb_mask is not None:
-            out["n_feedbacks"] = fb_mask.sum().to(torch.int32)
-        return out
+        st.g.adam_step(self.cfg.generator_opt)
+        return fb_sq
 
     def _sum_over_workers(self, cot: torch.Tensor, fb_sq: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:

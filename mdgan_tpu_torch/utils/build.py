@@ -12,13 +12,14 @@ one compiler, and keeps the compiler's output beside the library as
 
 from __future__ import annotations
 
+import contextlib
 import fcntl
 import hashlib
 import os
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Callable, List
+from typing import Callable, Iterator, List
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
@@ -32,15 +33,23 @@ def hash_of(flags, paths) -> str:
     return h.hexdigest()[:16]
 
 
+@contextlib.contextmanager
+def file_lock(path: Path) -> Iterator[None]:
+    """Hold an exclusive ``flock`` on ``path`` (created with its folder)
+    for the body: one process at a time across the machine."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        yield
+
+
 def build_locked(out: Path, command_for: Callable[[Path], List[str]]) -> Path:
     """Run the compiler command ``command_for(tmp)`` unless ``out`` exists,
     under a file lock (another process may be building it), and keep the
     compiler's output beside the library as ``.log``; return ``out``."""
     if out.is_file():
         return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    with open(out.parent / f".{out.name}.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+    with file_lock(out.parent / f".{out.name}.lock"):
         if not out.is_file():
             _compile(out, command_for)
     return out

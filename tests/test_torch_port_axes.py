@@ -30,15 +30,14 @@ launch that kills every rank, one intra-op thread a rank.  Held here:
 """
 
 import json
-import os
-import signal
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+
+from test_torch_port_distributed import launch
 
 ROOT = Path(__file__).resolve().parents[1]
 N, B, WIDTH, SEED = 4, 4, 8, 3
@@ -201,26 +200,6 @@ if __name__ == "__main__":
 
 
 # --- launching the ranks -------------------------------------------------------
-
-def launch(script: Path, world: int, args, timeout: float) -> str:
-    """``python -m torch.distributed.run`` of ``script`` on ``world`` ranks;
-    every rank is killed if the launch outlives ``timeout``."""
-    env = {"PATH": os.environ.get("PATH", ""), "HOME": os.environ.get("HOME", str(ROOT)),
-           "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1",
-           "TMPDIR": os.environ.get("TMPDIR", "/tmp")}
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", str(world), str(script), *map(str, args)]
-    proc = subprocess.Popen(cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
-    try:
-        out, _ = proc.communicate(timeout=timeout)
-    finally:
-        if proc.poll() is None:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.communicate()
-    assert proc.returncode == 0, out[-6000:]
-    return out
-
 
 def launch_engine(tmp_path, world: int, specs, timeout: float = 240):
     """The specs on ``world`` ranks; returns each spec's per-rank results."""

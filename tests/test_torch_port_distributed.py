@@ -22,8 +22,9 @@ The rank programs are this file run as a script under
     rank layout's.
 
 Every launch has its own timeout and kills every rank when it expires (as
-``tests/test_multihost.py:_communicate_all`` does); the ranks run with one
-intra-op thread each.
+``tests/test_multihost.py:_communicate_all`` does), and holds a file lock,
+one launch of the port's tests at a time (:func:`run_ranks`); the ranks run
+with one intra-op thread each.
 """
 
 import json
@@ -37,6 +38,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+
+from mdgan_tpu_torch.utils.build import BUILD_DIR, file_lock
 
 ROOT = Path(__file__).resolve().parents[1]
 N, B, WIDTH, SEED = 4, 4, 8, 3
@@ -149,24 +152,51 @@ if __name__ == "__main__":
 
 # --- launching the ranks -------------------------------------------------------
 
-def _launch(world: int, args, timeout: float) -> str:
-    """``python -m torch.distributed.run`` of this file on ``world`` ranks;
-    every rank is killed if the launch outlives ``timeout``."""
-    env = {"PATH": os.environ.get("PATH", ""), "HOME": os.environ.get("HOME", str(ROOT)),
-           "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1",
-           "TMPDIR": os.environ.get("TMPDIR", "/tmp")}
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", str(world), str(Path(__file__).resolve()), *map(str, args)]
-    proc = subprocess.Popen(cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
-    try:
-        out, _ = proc.communicate(timeout=timeout)
-    finally:
-        if proc.poll() is None:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.communicate()
-    assert proc.returncode == 0, out[-6000:]
+# Every launch of ranks in the port's tests holds this lock, so the suite's
+# workers start one launch at a time: unlocked, the 2-, 4- and 8-rank launches
+# of this file and the axes files could run together, up to 20 rank
+# processes beside the suite's own workers on the machine's cores.
+RANKS_LOCK = BUILD_DIR / "test_ranks.lock"
+
+
+def rank_env() -> dict:
+    """The environment of a launch: the repository importable, one intra-op
+    thread a process."""
+    return {"PATH": os.environ.get("PATH", ""), "HOME": os.environ.get("HOME", str(ROOT)),
+            "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1",
+            "TMPDIR": os.environ.get("TMPDIR", "/tmp")}
+
+
+def run_ranks(cmd, timeout: float, cwd: Path = ROOT, env=None):
+    """Run ``cmd``, a launch of ranks, under ``RANKS_LOCK`` in a session of
+    its own; every process of it is killed if it outlives ``timeout``.
+    Returns (return code, stdout and stderr)."""
+    with file_lock(RANKS_LOCK):
+        proc = subprocess.Popen(cmd, cwd=str(cwd), env=env or rank_env(),
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            out, _ = proc.communicate(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+    return proc.returncode, out
+
+
+def launch(script: Path, world: int, args, timeout: float) -> str:
+    """``python -m torch.distributed.run`` of ``script`` on ``world`` ranks
+    (:func:`run_ranks`); its output."""
+    rc, out = run_ranks([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                         "--nproc_per_node", str(world), str(script), *map(str, args)],
+                        timeout)
+    assert rc == 0, out[-6000:]
     return out
+
+
+def _launch(world: int, args, timeout: float) -> str:
+    """:func:`launch` of this file."""
+    return launch(Path(__file__).resolve(), world, args, timeout)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -1,9 +1,10 @@
 """mdgan_tpu_torch stands alone: no JAX, no mdgan_tpu, no quiet CPU fallback.
 
-The machine with the GPU has no JAX, so the port and ``chip_smoke.py`` must
-import none of it, nor any module of the JAX package (not even its JAX-free
-ones): a subprocess imports every port module with those packages made
-unimportable, and an AST scan finds no import of them.
+The machine with the GPU has no JAX, so the port, its examples
+(``examples_torch/``) and ``chip_smoke.py`` must import none of it, nor any
+module of the JAX package (not even its JAX-free ones): a subprocess imports
+every port module and example with those packages made unimportable, and an
+AST scan finds no import of them.
 """
 
 import ast
@@ -18,6 +19,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "mdgan_tpu_torch"
+EXAMPLES = ROOT / "examples_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "mdgan_tpu")
 
 _CHILD = r"""
@@ -35,27 +37,35 @@ import mdgan_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(mdgan_tpu_torch.__path__, "mdgan_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-spec = importlib.util.spec_from_file_location("chip_smoke", %r)
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+scripts = %r
+for path in scripts:
+    spec = importlib.util.spec_from_file_location("script", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
-print("IMPORTED", len(names), "BAD", bad)
+print("IMPORTED", len(names), "SCRIPTS", len(scripts), "BAD", bad)
 """
 
 
+def _scripts():
+    return sorted(EXAMPLES.glob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + _scripts()
 
 
 def test_port_imports_with_jax_and_mdgan_tpu_blocked():
     env = {"PYTHONPATH": str(ROOT), "PATH": os.environ.get("PATH", ""),
            "HOME": os.environ.get("HOME", str(ROOT))}
-    proc = subprocess.run([sys.executable, "-c", _CHILD % (BLOCKED, str(ROOT / "chip_smoke.py"))],
+    scripts = [str(p) for p in _scripts()]
+    proc = subprocess.run([sys.executable, "-c", _CHILD % (BLOCKED, scripts)],
                           cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     n_modules = len([p for p in PORT.rglob("*.py") if p.name != "__init__.py"])
     # every subpackage, nested ones (data/native) included
     n_subpackages = len([p for p in PORT.rglob("__init__.py") if p.parent != PORT])
-    assert f"IMPORTED {n_modules + n_subpackages} BAD []" in proc.stdout, proc.stdout
+    assert (f"IMPORTED {n_modules + n_subpackages} SCRIPTS {len(scripts)} BAD []"
+            in proc.stdout), proc.stdout
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))

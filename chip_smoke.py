@@ -144,6 +144,16 @@ with its seconds:
            ``run-standalone-torch.sh`` (``--epochs 10 --log_interval 0``) as
            subprocesses on the card: exit 0, their rounds, swaps, sample grid
            and summary
+  record   the recorder's training steps (``cli/record_artifacts.py``) into a
+           temporary root, each on one leg cut to 20 rounds with
+           ``--log_interval``/``--swap_interval`` 10 and ``--eval_n_samples``
+           512: golden, standalone, the convergence step's standalone and
+           N=2 legs (then its COMPARISON.json), the scale step's N=20 leg;
+           then the prune.  Each leg's summary, span CSV columns (against
+           the JAX recording of the same step), a row a round in each worker
+           CSV, its grids and its weights left after the prune; 2 Adam
+           launches a round in each leg.  The kernels phase times Adam on
+           the N=2 and N=4 legs' arenas and sampling at their chunks
 
 Then one JSON line with every kernel's record, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -356,6 +366,10 @@ def phase_kernels():
             rec["arenas"]["G T=2 shard"] = adam_arena(gen, g_shard_numel(), rec, "G T=2 shard")
             rec["arenas"]["D x4"] = adam_arena(gen, 4 * n_d1, rec, "D x4")
             rec["axes"] = _sum_arenas(rec["arenas"]["G T=2 shard"], rec["arenas"]["D x4"])
+            # the recorded convergence legs at N=2 and N=4: G and the N-D arena
+            rec["arenas"]["D x2"] = adam_arena(gen, 2 * n_d1, rec, "D x2")
+            rec["mdgan_w2"] = _sum_arenas(g, rec["arenas"]["D x2"])
+            rec["mdgan_w4"] = _sum_arenas(g, rec["arenas"]["D x4"])
         for dataset in FAMILIES:
             n_g, n_d1 = sizes(dataset)
             arenas = {name: adam_arena(gen, n, rec, f"{dataset} {name}", bf16)
@@ -425,6 +439,9 @@ def phase_sampling(gen):
         "round_idx_2d": check("round_idx_2d", cifar, indices(1, 8, 10, 6250)[0]),
         # a replica's rows: b/R = 5 a worker (the axes phase's R=2 chunks)
         "axes_T100_b5": check("axes_T100_b5", cifar, indices(100, 8, 5, 6250)),
+        # the recorded convergence legs' chunks: the same 50,000 rows as 2 and 4 shards
+        "w2_T100": check("w2_T100", cifar.view(2, 25000, 32, 32, 3), indices(100, 2, 10, 25000)),
+        "w4_T100": check("w4_T100", cifar.view(4, 12500, 32, 32, 3), indices(100, 4, 10, 12500)),
     }
     whole = shards_of(1, 50000, (32, 32, 3))  # the standalone run's one-shard stack
     cases["standalone_T100"] = check("standalone_T100", whole, indices(100, 1, 10, 50000))
@@ -439,6 +456,8 @@ def phase_sampling(gen):
     for name, t, stack, b in (("chunk_T100", 100, cifar, 10), ("round_T1", 1, cifar, 10),
                               ("standalone_T100", 100, whole, 10),
                               ("axes_T100_b5", 100, cifar, 5),
+                              ("w2_T100", 100, cifar.view(2, 25000, 32, 32, 3), 10),
+                              ("w4_T100", 100, cifar.view(4, 12500, 32, 32, 3), 10),
                               # the bench phase's launches: its timed chunks
                               # and bench_sustained's run
                               *((f"bench_T{t}", t, cifar, 10)
@@ -2187,6 +2206,123 @@ def phase_examples(rounds: int = 10):
     return out
 
 
+# the record phase's cut of each recorder step: one leg of at most 20 rounds
+RECORD_CUT = {"--epochs": "20", "--log_interval": "10", "--swap_interval": "10",
+              "--eval_n_samples": "512"}
+JAX_ARTIFACTS = ROOT / "artifacts"
+
+
+def _csv_header(path: Path) -> list:
+    from mdgan_tpu_torch.obs.spans import open_maybe_gz
+
+    with open_maybe_gz(path) as f:
+        return f.readline().strip().split(",")
+
+
+def _record_leg(out: Path, rounds: int, server: str, jax_run: str, workers=(), gz=(),
+                weights=frozenset()):
+    """One recorded leg's layout: the summary's rounds, its span CSVs' columns
+    against the JAX recording of the same step, a row a round in each worker
+    CSV, three grids, and the weight exports left after pruning."""
+    summary = json.loads((out / "summary.json").read_text())
+    require(summary["rounds"] == rounds and summary["all_finite"],
+            f"record {out.name}: summary {summary}")
+    require((out / "MANIFEST.md").is_file(), f"record {out.name}: no MANIFEST.md")
+    logs, jax_logs = out / "logs", JAX_ARTIFACTS / jax_run / "logs"
+    require(_csv_header(logs / server) == _csv_header(jax_logs / server),
+            f"record {out.name}: {server} columns differ from the JAX recording's")
+    for w in workers:
+        name = f"{server.split('.server')[0]}.worker.{w}.logs.csv" + (".gz" if w in gz else "")
+        jax_name = next(iter(sorted(jax_logs.glob(f"*.worker.{w}.logs.csv*"))), None)
+        require(jax_name is not None and _csv_header(logs / name) == _csv_header(jax_name),
+                f"record {out.name}: {name} columns differ from the JAX recording's")
+        from mdgan_tpu_torch.obs.spans import read_spans
+
+        rows = read_spans(logs / name)
+        require([int(r["epoch"]) for r in rows] == list(range(rounds)),
+                f"record {out.name}: {name} is not a row a round")
+    # the first, middle and last grid (the standalone run's 20 rounds make 2)
+    grids = sorted((p.name for p in (out / "images").glob("*_[0-9]*.png")),
+                   key=lambda n: int(n[:-4].rsplit("_", 1)[1]))
+    require(2 <= len(grids) <= 3 and grids[0].endswith("_0.png"),
+            f"record {out.name}: grids {grids}")
+    kept = {p.relative_to(out / "weights").as_posix()
+            for p in (out / "weights").rglob("*.npz")} if (out / "weights").is_dir() else set()
+    require(kept == set(weights), f"record {out.name}: weights left {sorted(kept)}")
+    return {"rounds": summary["rounds"], "steps_per_sec": summary["steps_per_sec"],
+            "grids": grids, "weights": sorted(kept)}
+
+
+def phase_record():
+    """The recorder's training steps (``cli/record_artifacts.py``) on the card,
+    each on one leg cut to ``RECORD_CUT``, into a temporary root: golden,
+    standalone, the convergence step's standalone and w2 legs (then its
+    COMPARISON.json), the scale step's w20 leg; then the prune.  Each leg's
+    layout is checked, and the Adam and sampling launches counted."""
+    from mdgan_tpu_torch.cli import record_artifacts as recorder
+
+    steps = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_record_") as tmp:
+        root = Path(tmp)
+        saved_tmp, tempfile.tempdir = tempfile.tempdir, str(root)  # the runs' checkpoints
+        try:
+            kernels_reset()
+            for name, step in (
+                    ("golden", lambda: recorder.record_golden_mdgan(root, RECORD_CUT)),
+                    ("standalone", lambda: recorder.record_golden_standalone(root, RECORD_CUT)),
+                    ("convergence_standalone", lambda: recorder.record_convergence(
+                        root, "cifar10_standalone_r30000", RECORD_CUT)),
+                    ("convergence_w2", lambda: recorder.record_convergence(
+                        root, "cifar10_w2_r30000", RECORD_CUT)),
+                    ("scale_w20", lambda: recorder.record_scale_runs(root, RECORD_CUT, only=20))):
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    step()
+                steps[name] = time.perf_counter() - t
+            launches = kernel_counts()
+            with contextlib.redirect_stdout(io.StringIO()):
+                recorder.prune_weights(root)
+                recorder.trim_inventory(root)
+        finally:
+            tempfile.tempdir = saved_tmp
+        art = root / recorder.ARTIFACTS
+        rounds = int(RECORD_CUT["--epochs"])
+        legs = {
+            "golden": _record_leg(
+                art / "golden/cifar10_w8_r2000", rounds, "mdgan.8.CIFAR10.server.logs.csv",
+                "golden/cifar10_w8_r2000", workers=range(1, 9),
+                weights={"generator_final.npz", "worker_1/discriminator.npz"}),
+            "standalone": _record_leg(
+                art / "golden/cifar10_standalone_r2000", rounds, "CIFAR10.standalone.logs.csv",
+                "golden/cifar10_standalone_r2000"),
+            "convergence_standalone": _record_leg(
+                art / "convergence/cifar10_standalone_r30000", rounds,
+                "CIFAR10.standalone.logs.csv", "convergence/cifar10_standalone_r30000"),
+            "convergence_w2": _record_leg(
+                art / "convergence/cifar10_w2_r30000", rounds, "mdgan.2.CIFAR10.server.logs.csv",
+                "convergence/cifar10_w2_r30000", workers=(1, 2), gz=(2,)),
+            "scale_w20": _record_leg(
+                art / "scale/cifar10_w20_r10000", rounds, "mdgan.20.CIFAR10.server.logs.csv",
+                "scale/cifar10_w20_r10000", workers=range(1, 21), gz=range(2, 21)),
+        }
+        require((art / "golden/cifar10_w8_r2000/logs/host.csv").is_file(),
+                "record golden: no host metrics CSV")
+        comp = json.loads((art / "convergence/COMPARISON.json").read_text())
+        require(set(comp) == {"standalone", "mdgan_w2"}, f"record COMPARISON keys {sorted(comp)}")
+        for label, c in comp.items():
+            vals = [v for _, v in c["fid_standard"]]
+            require([e for e, _ in c["fid_standard"]] == [0, rounds - 1]
+                    and all(math.isfinite(v) for v in vals)
+                    and c["best_fid_standard"] == min(vals) and c["final_fid_standard"] == vals[-1],
+                    f"record COMPARISON {label}: {c}")
+    # 2 Adam launches a round (a local epoch in standalone) in each of the 5
+    # legs, and at least one sampling launch a leg
+    require(launches["adam"] == 2 * rounds * len(steps) and launches["sampling"] >= len(steps),
+            f"record: launches {launches}")
+    return {"steps_s": steps, "legs": legs, "launches": launches,
+            "comparison_best_fid_standard": {k: c["best_fid_standard"] for k, c in comp.items()}}
+
+
 def main() -> int:
     import torch
 
@@ -2311,6 +2447,10 @@ def main() -> int:
     rec = phase_examples()
     emit({"phase": "examples", "seconds": time.perf_counter() - t, "card": smi, **rec})
 
+    t = time.perf_counter()
+    record_rec = phase_record()
+    emit({"phase": "record", "seconds": time.perf_counter() - t, "card": smi, **record_rec})
+
     # each path's launches, counted in its run
     paths = {"mdgan": {k: mdgan_launches["float32"][k] + mdgan_launches["bfloat16"][k]
                        for k in ("adam", "adam_bf16m", "sampling")},
@@ -2321,7 +2461,8 @@ def main() -> int:
              "axes": {k: sum(c[k] for rec in axes_rec["layouts"].values()
                              for c in rec["launches_per_rank"])
                       for k in ("adam", "adam_bf16m", "sampling")},
-             **tools_launches, **bench_launches, "parts": parts_launches}
+             **tools_launches, **bench_launches, "parts": parts_launches,
+             "record": record_rec["launches"]}
     sa_samp = samp_rec["timed"]["standalone_T100"]
     main_adam = {k: adam_rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     main_samp = {k: samp_rec[k] for k in ("ms", "plain_ms", "bound_ms")}
@@ -2344,6 +2485,12 @@ def main() -> int:
                      "mnist_download": {k: mnist_samp[k] for k in (
                          "ms", "plain_ms", "bound_ms", "rounds_per_launch")}},
     }
+    # the record phase's new shapes: the convergence step's N=2 leg (its N=8,
+    # N=1 and N=20 legs are the mdgan, standalone and scale shapes)
+    by_path["adam"]["record"] = {k: adam_rec["mdgan_w2"][k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms")}
+    by_path["sampling"]["record"] = {k: samp_rec["timed"]["w2_T100"][k] for k in (
+        "ms", "plain_ms", "bound_ms", "rounds_per_launch")}
     # the bench's lines and the parts run the headline round: its arenas, and
     # the gather at each path's main launch (the bench's timed chunks,
     # bench_sustained's run, a round a launch in the parts)

@@ -664,7 +664,8 @@ def test_registry_has_every_jax_dataset():
 
 
 @pytest.mark.parametrize("name,max_examples", [("SyntheticMNIST", 50), ("MNIST", 40),
-                                               ("CelebA", 30), ("FFHQ128", 6)])
+                                               ("CelebA", 30), ("FFHQ128", 6),
+                                               ("CIFAR10", 50000)])
 def test_fallback_loaders_identical(tmp_path, name, max_examples):
     a, la = registry.get(name).load(str(tmp_path), max_examples=max_examples)
     b, lb = jregistry.get(name).load(str(tmp_path), max_examples=max_examples)

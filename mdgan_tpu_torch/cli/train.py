@@ -146,18 +146,27 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
 
 def _profiler(profile_dir: str):
     """A ``torch.profiler`` over the first chunks, written as
-    ``<profile_dir>/trace.json`` (the ``jax.profiler`` trace of the JAX CLI)."""
+    ``<profile_dir>/trace.json`` (the ``jax.profiler`` trace of the JAX CLI),
+    with the program's phase spans of those chunks beside it as
+    ``spans.json`` (``obs/spans.py`` ``write_json``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
+
+    from mdgan_tpu_torch.obs import spans
 
     out = Path(profile_dir)
     out.mkdir(parents=True, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+
+    def write(prof):
+        prof.export_chrome_trace(str(out / "trace.json"))
+        spans.write_json(out / "spans.json")
+
     return profile(activities=activities,
                    schedule=schedule(wait=0, warmup=1, active=_PROFILED_CHUNKS, repeat=1),
-                   on_trace_ready=lambda p: p.export_chrome_trace(str(out / "trace.json")))
+                   on_trace_ready=write)
 
 
 def main(argv=None) -> int:

@@ -75,6 +75,15 @@ A chunk's real batches are gathered in as few sampling launches as keep
 each launch's output within ``GATHER_CAP_BYTES`` (256 MiB): one launch a
 chunk at CIFAR-10 (98 MB for 100 rounds at N=8, b=10), several at
 128x128x3 (1.57 GB).
+
+Both engines mark their phases with the same spans (``obs/spans.py``
+:func:`phase`, recorded only under ``torch.profiler``): ``engine.chunk``
+(``run_rounds``), ``engine.sample`` (each sampling launch),
+``engine.round``, and inside it ``engine.generate`` (step 1),
+``engine.d_step`` (a local epoch of step 3), ``engine.feedback`` (step 4)
+and ``engine.g_update`` (step 5); ``engine.collective`` around each
+collective of an active axis, ``engine.metrics`` around the chunk's metrics,
+``engine.swap``.  There is no span per worker.
 """
 
 from __future__ import annotations
@@ -91,6 +100,7 @@ from mdgan_tpu_torch.core.mesh import RankLayout, rank_layout
 from mdgan_tpu_torch.core.registry import DatasetSpec
 from mdgan_tpu_torch.engine.state import MDGANState, NetState, moment_dtype
 from mdgan_tpu_torch.models.layers import dcgan_init_
+from mdgan_tpu_torch.obs.spans import phase
 from mdgan_tpu_torch.ops import losses
 from mdgan_tpu_torch.ops.sampling import sample_normalize
 from mdgan_tpu_torch.parallel import swap as swap_lib
@@ -167,7 +177,9 @@ class EngineBase:
         per_round = idx[0].numel() * data[0, 0].numel() * 4
         span = max(1, GATHER_CAP_BYTES // per_round)
         for s in range(0, idx.shape[0], span):
-            yield from sample_normalize(data, idx[s:s + span])
+            with phase("engine.sample"):
+                reals = sample_normalize(data, idx[s:s + span])
+            yield from reals
 
     def put_indices(self, idx: np.ndarray, shard_size: int) -> torch.Tensor:
         """Validate sampler indices on the host, then copy them to the device."""
@@ -320,10 +332,12 @@ class MDGANEngine(EngineBase):
         generator.
         """
         lo, hi = self.layout.lo, self.layout.hi
-        m = self._round(st, sample_normalize(data, idx[lo:hi, self._rows].contiguous()), z,
-                        masks, fb_mask)
-        return self._whole({k: v[None] if k != "x_eval" else v for k, v in m.items()},
-                           squeeze=True)
+        with phase("engine.sample"):
+            real = sample_normalize(data, idx[lo:hi, self._rows].contiguous())
+        m = self._round(st, real, z, masks, fb_mask)
+        with phase("engine.metrics"):
+            return self._whole({k: v[None] if k != "x_eval" else v for k, v in m.items()},
+                               squeeze=True)
 
     def _whole(self, m: Dict[str, torch.Tensor], squeeze: bool = False
                ) -> Dict[str, torch.Tensor]:
@@ -335,21 +349,24 @@ class MDGANEngine(EngineBase):
         single-process row order."""
         parts = [m["mean_d_loss"], m["g_feedback_loss"], m.pop("fb_sq")[:, None]]
         if self._split:
-            flat = distributed.all_reduce_(torch.cat(parts, 1).float(), self._replica)
+            with phase("engine.collective"):
+                flat = distributed.all_reduce_(torch.cat(parts, 1).float(), self._replica)
             parts = [p.to(q.dtype) for p, q in zip(flat.split([q.shape[1] for q in parts], 1),
                                                    parts)]
         m["feedback_norm"] = parts[2][:, 0].sqrt()
         local = parts[:2]
         if self.layout.worker_axis.active:
-            full = distributed.all_gather_cat(torch.stack([t.float() for t in local]),
-                                              self.layout.worker_axis, dim=-1)
+            with phase("engine.collective"):
+                full = distributed.all_gather_cat(torch.stack([t.float() for t in local]),
+                                                  self.layout.worker_axis, dim=-1)
             local = [f.to(t.dtype) for f, t in zip(full.unbind(0), local)]
         m["mean_d_loss"], m["g_feedback_loss"] = local
         if self._split:
             x = m["x_eval"]
             x = x.reshape(self.k, -1, *x.shape[1:])
-            m["x_eval"] = distributed.gather(x, self._replica, 1, self._row_sizes).reshape(
-                -1, *x.shape[2:])
+            with phase("engine.collective"):
+                x = distributed.gather(x, self._replica, 1, self._row_sizes)
+            m["x_eval"] = x.reshape(-1, *x.shape[2:])
         if squeeze:
             m = {k: v if k == "x_eval" else v[0] for k, v in m.items()}
         return m
@@ -362,29 +379,30 @@ class MDGANEngine(EngineBase):
         parts: its workers' losses (summed over its rows, over the global b,
         under a replica split), the feedbacks' squared sum ``fb_sq`` and its
         rows of ``x_eval``; :meth:`_whole` makes them the run's."""
-        if z is None:
-            z = self.latents(st)
-        z = self._my_rows(z)
-        if fb_mask is None and self.cfg.straggler_rate > 0.0:
-            fb_mask = self.straggler_mask(st)
+        with phase("engine.round", st.step):
+            if z is None:
+                z = self.latents(st)
+            z = self._my_rows(z)
+            if fb_mask is None and self.cfg.straggler_rate > 0.0:
+                fb_mask = self.straggler_mask(st)
 
-        # (1) generate k*b fakes in one forward; the graph waits for (5)
-        with self._autocast():
-            x_all = st.g.modules[0](z)
-        x_k = x_all.detach().view(self.k, -1, *x_all.shape[1:])
-        # (2)-(4) local D steps and feedback, then (5) the G step
-        mean_d_loss, g_losses, feedback = self._d_region(st, real, x_k, masks)
-        fb_sq = self._g_update(st, x_all, feedback, fb_mask)
-        st.step += 1
-        out = {
-            "mean_d_loss": mean_d_loss,
-            "g_feedback_loss": g_losses,
-            "fb_sq": fb_sq,
-            "x_eval": x_all.detach(),
-        }
-        if fb_mask is not None:
-            out["n_feedbacks"] = fb_mask.sum().to(torch.int32)
-        return out
+            # (1) generate k*b fakes in one forward; the graph waits for (5)
+            with phase("engine.generate"), self._autocast():
+                x_all = st.g.modules[0](z)
+            x_k = x_all.detach().view(self.k, -1, *x_all.shape[1:])
+            # (2)-(4) local D steps and feedback, then (5) the G step
+            mean_d_loss, g_losses, feedback = self._d_region(st, real, x_k, masks)
+            fb_sq = self._g_update(st, x_all, feedback, fb_mask)
+            st.step += 1
+            out = {
+                "mean_d_loss": mean_d_loss,
+                "g_feedback_loss": g_losses,
+                "fb_sq": fb_sq,
+                "x_eval": x_all.detach(),
+            }
+            if fb_mask is not None:
+                out["n_feedbacks"] = fb_mask.sum().to(torch.int32)
+            return out
 
     def _d_fwd(self, st: MDGANState, i: int, x: torch.Tensor, masks: Optional[Masks],
                *path: int) -> torch.Tensor:
@@ -405,16 +423,18 @@ class MDGANEngine(EngineBase):
         x_d = x_k[self._d_assign]
         d_loss_sum = torch.zeros(nl, device=self.device)
         for l in range(cfg.local_epochs):
-            st.d.zero_grad()
-            with self._autocast():
-                loss = torch.stack([losses.d_loss(self._d_fwd(st, i, real[i], masks, l, lo + i, 0),
-                                                  self._d_fwd(st, i, x_d[i], masks, l, lo + i, 1),
-                                                  self._total)
-                                    for i in range(nl)])
-            loss.sum().backward()
-            distributed.all_reduce_(st.d.grads, self._replica)
-            st.d.adam_step(cfg.discriminator_opt)
-            d_loss_sum += loss.detach()
+            with phase("engine.d_step"):
+                st.d.zero_grad()
+                with self._autocast():
+                    loss = torch.stack([
+                        losses.d_loss(self._d_fwd(st, i, real[i], masks, l, lo + i, 0),
+                                      self._d_fwd(st, i, x_d[i], masks, l, lo + i, 1),
+                                      self._total)
+                        for i in range(nl)])
+                loss.sum().backward()
+                self._replica_sum(st.d.grads)
+                st.d.adam_step(cfg.discriminator_opt)
+                d_loss_sum += loss.detach()
         g_losses, feedback = self._feedback(st, x_k[self._g_assign], masks)
         return d_loss_sum / cfg.local_epochs, g_losses, feedback
 
@@ -425,13 +445,15 @@ class MDGANEngine(EngineBase):
         (N/W, b_r, C, H, W), a tensor of its own.  Returns the losses (N/W,)
         and the feedbacks."""
         lo, nl = self.layout.lo, self.layout.per_rank
-        x_g = x_g.requires_grad_(True)
-        with self._autocast():
-            g_losses = torch.stack([
-                losses.g_loss(self._d_fwd(st, i, x_g[i], masks, self.cfg.local_epochs, lo + i),
-                              self._total)
-                for i in range(nl)])
-        (feedback,) = torch.autograd.grad(g_losses.sum(), x_g)
+        with phase("engine.feedback"):
+            x_g = x_g.requires_grad_(True)
+            with self._autocast():
+                g_losses = torch.stack([
+                    losses.g_loss(self._d_fwd(st, i, x_g[i], masks, self.cfg.local_epochs,
+                                              lo + i),
+                                  self._total)
+                    for i in range(nl)])
+            (feedback,) = torch.autograd.grad(g_losses.sum(), x_g)
         return g_losses.detach(), feedback
 
     def _g_update(self, st: MDGANState, x_all: torch.Tensor, feedback: torch.Tensor,
@@ -443,32 +465,41 @@ class MDGANEngine(EngineBase):
         stragglers, and the G Adam step.  Returns the feedbacks' squared
         sum over the workers, taken before the drop."""
         b, n, lo, nl = self.cfg.batch_size, self.n, self.layout.lo, self.layout.per_rank
-        fb_sq = feedback.square().sum()
-        if fb_mask is not None:
-            # the server's straggler discard: late feedbacks contribute zero
-            keep = fb_mask[lo:lo + nl].to(feedback.dtype)
-            feedback = feedback * keep.view(-1, *([1] * (feedback.dim() - 1)))
-        cot = torch.zeros_like(x_all).view(self.k, -1, *x_all.shape[1:]).index_add_(
-            0, self._g_assign, feedback)
-        if self.layout.worker_axis.active:
-            cot, fb_sq = self._sum_over_workers(cot, fb_sq)
-        st.g.zero_grad()
-        if fb_mask is None:
-            x_all.backward(cot.view_as(x_all) * (1.0 / (b * n)))
-        else:
-            scale = 1.0 / (b * fb_mask.sum().to(torch.float32))
-            x_all.backward((cot.view_as(x_all).float() * scale).to(x_all.dtype))
-        distributed.all_reduce_(st.g.grads, self._replica)
-        st.g.adam_step(self.cfg.generator_opt)
+        with phase("engine.g_update"):
+            fb_sq = feedback.square().sum()
+            if fb_mask is not None:
+                # the server's straggler discard: late feedbacks contribute zero
+                keep = fb_mask[lo:lo + nl].to(feedback.dtype)
+                feedback = feedback * keep.view(-1, *([1] * (feedback.dim() - 1)))
+            cot = torch.zeros_like(x_all).view(self.k, -1, *x_all.shape[1:]).index_add_(
+                0, self._g_assign, feedback)
+            if self.layout.worker_axis.active:
+                cot, fb_sq = self._sum_over_workers(cot, fb_sq)
+            st.g.zero_grad()
+            if fb_mask is None:
+                x_all.backward(cot.view_as(x_all) * (1.0 / (b * n)))
+            else:
+                scale = 1.0 / (b * fb_mask.sum().to(torch.float32))
+                x_all.backward((cot.view_as(x_all).float() * scale).to(x_all.dtype))
+            self._replica_sum(st.g.grads)
+            st.g.adam_step(self.cfg.generator_opt)
         return fb_sq
+
+    def _replica_sum(self, grads: torch.Tensor) -> None:
+        """An arena's gradients summed over the replica group, in place
+        (nothing without one)."""
+        if self._replica.active:
+            with phase("engine.collective"):
+                distributed.all_reduce_(grads, self._replica)
 
     def _sum_over_workers(self, cot: torch.Tensor, fb_sq: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The workers' collective: the cotangent and the feedbacks' squared
         sum packed into one float32 buffer and summed over the workers group
         (the two ``psum``s of ``mdgan.py:372-375``)."""
-        buf = torch.cat([cot.reshape(-1).float(), fb_sq.reshape(1).float()])
-        distributed.all_reduce_(buf, self.layout.worker_axis)
+        with phase("engine.collective"):
+            buf = torch.cat([cot.reshape(-1).float(), fb_sq.reshape(1).float()])
+            distributed.all_reduce_(buf, self.layout.worker_axis)
         return buf[:-1].view(cot.shape).to(cot.dtype), buf[-1].to(fb_sq.dtype)
 
     def run_rounds(self, st: MDGANState, data: torch.Tensor, sampler, num_rounds: int,
@@ -483,14 +514,17 @@ class MDGANEngine(EngineBase):
         """
         if z is not None and z.shape[0] != num_rounds:
             raise ValueError(f"z holds {z.shape[0]} rounds of latents, want {num_rounds}")
-        idx = sampler.next_chunk(num_rounds)[:, self.layout.lo:self.layout.hi, self._rows]
-        idx = self.put_indices(idx, data.shape[1])
-        out: List[Dict[str, torch.Tensor]] = [
-            self._round(st, real, None if z is None else z[t])
-            for t, real in enumerate(self._real_batches(data, idx))]
-        stacked = {key: torch.stack([m[key] for m in out]) for key in out[0] if key != "x_eval"}
-        stacked["x_eval"] = out[-1]["x_eval"]
-        return self._whole(stacked)
+        with phase("engine.chunk", st.step):
+            idx = sampler.next_chunk(num_rounds)[:, self.layout.lo:self.layout.hi, self._rows]
+            idx = self.put_indices(idx, data.shape[1])
+            out: List[Dict[str, torch.Tensor]] = [
+                self._round(st, real, None if z is None else z[t])
+                for t, real in enumerate(self._real_batches(data, idx))]
+            with phase("engine.metrics"):
+                stacked = {key: torch.stack([m[key] for m in out])
+                           for key in out[0] if key != "x_eval"}
+                stacked["x_eval"] = out[-1]["x_eval"]
+                return self._whole(stacked)
 
     # ------------------------------------------------------------------
     # discriminator swap
@@ -522,8 +556,9 @@ class MDGANEngine(EngineBase):
             raise ValueError(
                 "swap_impl='ppermute' needs one worker per rank (workers axis "
                 f"{lay.worker_axis.size}, workers={self.n}); use 'gather' or 'auto'")
-        if impl == "ppermute" or (impl == "auto" and eligible):
-            swap_lib.swap_pairs(st.d, perm, lay, self.cfg.swap_opt_state)
-        else:
-            swap_lib.swap_gather(st.d, perm, lay, self.cfg.swap_opt_state)
+        with phase("engine.swap"):
+            if impl == "ppermute" or (impl == "auto" and eligible):
+                swap_lib.swap_pairs(st.d, perm, lay, self.cfg.swap_opt_state)
+            else:
+                swap_lib.swap_gather(st.d, perm, lay, self.cfg.swap_opt_state)
         return st

@@ -31,6 +31,7 @@ import torch
 
 from mdgan_tpu_torch.engine.mdgan import EngineBase, Masks
 from mdgan_tpu_torch.engine.state import StandaloneState
+from mdgan_tpu_torch.obs.spans import phase
 from mdgan_tpu_torch.ops import losses
 from mdgan_tpu_torch.ops.sampling import sample_normalize
 
@@ -61,45 +62,51 @@ class StandaloneEngine(EngineBase):
         idx: (1, b) int32, both on the device; z: optional (b, z_dim);
         masks: optional dropout keep masks by key path, (i, 0, half) and
         (i, 1) (tests inject JAX's)."""
-        return self._round(st, sample_normalize(data, idx)[0], z, masks)
+        with phase("engine.sample"):
+            real = sample_normalize(data, idx)[0]
+        return self._round(st, real, z, masks)
 
     def _round(self, st: StandaloneState, real: torch.Tensor, z: Optional[torch.Tensor],
                masks: Optional[Masks] = None) -> Dict[str, torch.Tensor]:
         """The round's body on its real batch ``real``, (b, C, H, W) float32."""
         cfg = self.cfg
-        if z is None:
-            z = self.latents(st)
-        g_net, d_net = st.g.modules[0], st.d.modules[0]
-        g_params = list(g_net.parameters())
+        with phase("engine.round", st.step):
+            if z is None:
+                z = self.latents(st)
+            g_net, d_net = st.g.modules[0], st.d.modules[0]
+            g_params = list(g_net.parameters())
 
-        def d_fwd(x, *path):
-            return self._d_forward(d_net, x, st.seed, st.step, path, masks)
+            def d_fwd(x, *path):
+                return self._d_forward(d_net, x, st.seed, st.step, path, masks)
 
-        # (1) the round's fake batch; this forward's G statistics are dropped
-        fake0 = self.generate(st.g, z)
+            # (1) the round's fake batch; this forward's G statistics are dropped
+            with phase("engine.generate"):
+                fake0 = self.generate(st.g, z)
 
-        d_sum = torch.zeros((), device=self.device)
-        g_sum = torch.zeros((), device=self.device)
-        for i in range(cfg.local_epochs):
-            # (2) D step on (real, fake0)
-            st.d.zero_grad()
-            with self._autocast():
-                d_loss = losses.d_loss(d_fwd(real, i, 0, 0), d_fwd(fake0, i, 0, 1))
-            d_loss.backward()
-            st.d.adam_step(cfg.discriminator_opt)
-            # (3) G step against the updated D; gradients land in G's arena
-            # only, so D's arena holds nothing the next D step would add to
-            st.g.zero_grad()
-            with self._autocast():
-                g_loss = losses.g_loss(d_fwd(g_net(z), i, 1))
-            g_loss.backward(inputs=g_params)
-            st.g.adam_step(cfg.generator_opt)
-            d_sum += d_loss.detach()
-            g_sum += g_loss.detach()
-        st.step += 1
-        return {"mean_d_loss": d_sum / cfg.local_epochs,
-                "mean_g_loss": g_sum / cfg.local_epochs,
-                "x_eval": fake0}
+            d_sum = torch.zeros((), device=self.device)
+            g_sum = torch.zeros((), device=self.device)
+            for i in range(cfg.local_epochs):
+                # (2) D step on (real, fake0)
+                with phase("engine.d_step"):
+                    st.d.zero_grad()
+                    with self._autocast():
+                        d_loss = losses.d_loss(d_fwd(real, i, 0, 0), d_fwd(fake0, i, 0, 1))
+                    d_loss.backward()
+                    st.d.adam_step(cfg.discriminator_opt)
+                # (3) G step against the updated D; gradients land in G's arena
+                # only, so D's arena holds nothing the next D step would add to
+                with phase("engine.g_update"):
+                    st.g.zero_grad()
+                    with self._autocast():
+                        g_loss = losses.g_loss(d_fwd(g_net(z), i, 1))
+                    g_loss.backward(inputs=g_params)
+                    st.g.adam_step(cfg.generator_opt)
+                d_sum += d_loss.detach()
+                g_sum += g_loss.detach()
+            st.step += 1
+            return {"mean_d_loss": d_sum / cfg.local_epochs,
+                    "mean_g_loss": g_sum / cfg.local_epochs,
+                    "x_eval": fake0}
 
     def run_rounds(self, st: StandaloneState, data: torch.Tensor, sampler, num_rounds: int,
                    z: Optional[torch.Tensor] = None) -> Dict:
@@ -111,13 +118,15 @@ class StandaloneEngine(EngineBase):
         z: optional (T, b, z_dim) latents."""
         if z is not None and z.shape[0] != num_rounds:
             raise ValueError(f"z holds {z.shape[0]} rounds of latents, want {num_rounds}")
-        idx = sampler.next_chunk(num_rounds)
-        reals = self._real_batches(data, self.put_indices(idx, data.shape[1]))
-        out: List[Dict[str, torch.Tensor]] = [
-            self._round(st, real[0], None if z is None else z[t])
-            for t, real in enumerate(reals)]
-        stacked = {key: torch.stack([m[key] for m in out])
-                   for key in ("mean_d_loss", "mean_g_loss")}
+        with phase("engine.chunk", st.step):
+            idx = sampler.next_chunk(num_rounds)
+            reals = self._real_batches(data, self.put_indices(idx, data.shape[1]))
+            out: List[Dict[str, torch.Tensor]] = [
+                self._round(st, real[0], None if z is None else z[t])
+                for t, real in enumerate(reals)]
+            with phase("engine.metrics"):
+                stacked = {key: torch.stack([m[key] for m in out])
+                           for key in ("mean_d_loss", "mean_g_loss")}
         stacked["x_eval"] = out[-1]["x_eval"]
         stacked["idx"] = idx
         return stacked

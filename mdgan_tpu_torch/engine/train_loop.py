@@ -456,18 +456,19 @@ class MDGANTrainer:
                 self._snapshot_g()  # rank 0's tensor group gathers its generator
             if log_event and self._is_main:
                 self._print_log(e, m, t_start)
-                g_snap = self._snapshot_g()
-                if self._eval_pool is not None:
-                    # each queued eval holds a generator snapshot on the device
-                    while len(self._eval_backlog) >= _EVAL_BACKLOG:
-                        self._eval_backlog.popleft().result()
-                    eval_fut = self._eval_pool.submit(self._evaluate_work, e, g_snap,
-                                                      m["x_eval"])
-                    self._eval_backlog.append(eval_fut)
-                else:
-                    marks, result = self._evaluate_work(e, g_snap, m["x_eval"])
-                    self.logger.mark(**marks)
-                    self._eval_history.append(result)
+                with spans_lib.phase("trainer.eval"):
+                    g_snap = self._snapshot_g()
+                    if self._eval_pool is not None:
+                        # each queued eval holds a generator snapshot on the device
+                        while len(self._eval_backlog) >= _EVAL_BACKLOG:
+                            self._eval_backlog.popleft().result()
+                        eval_fut = self._eval_pool.submit(self._evaluate_work, e, g_snap,
+                                                          m["x_eval"])
+                        self._eval_backlog.append(eval_fut)
+                    else:
+                        marks, result = self._evaluate_work(e, g_snap, m["x_eval"])
+                        self.logger.mark(**marks)
+                        self._eval_history.append(result)
             if _checkpoint_due(tc, e):
                 with self.logger.span("checkpoint"):
                     # every rank joins the discriminators' gather; rank 0 saves

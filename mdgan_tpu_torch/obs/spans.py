@@ -26,15 +26,26 @@ rounds the trainer attributes the measured program span to both
 window edges — those two phases have no physical counterpart in an in-place
 swap (see ``MDGANTrainer._write_rows_for_chunk``).  A worker-CSV Gantt thus
 shows the real swap cost on the rows that paid it.
+
+**Phase spans** (:func:`phase`): the engines' and the trainer's phases
+(``engine.round``, ``engine.d_step``, ``trainer.swap``, ...), recorded only
+while a ``torch.profiler`` session runs: each shows in the profiler's trace
+as a ``record_function`` range and is kept in memory, stamped with
+``time.time_ns()`` (the clock of the profiler's events), for :func:`totals`,
+:func:`records` and :func:`write_json`.  Without a profiler a span costs
+one flag test at the outermost span of a thread and a nesting count.
 """
 
 from __future__ import annotations
 
 import csv
+import json
+import threading
 import time
 from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, List, Optional
+from time import time_ns
+from typing import Dict, List, Optional, Tuple
 
 SERVER_OPS = [
     "epoch", "epoch_calculation", "send_data", "recv_data", "calc_gradients",
@@ -112,10 +123,13 @@ class SpanLogger:
 
     @contextmanager
     def span(self, op: str):
+        """The row's ``start.<op>``/``end.<op>`` pair, and the phase span
+        ``trainer.<op>`` (:func:`phase`)."""
         assert self.row is not None, "begin_row first"
         self.row[f"start.{op}"] = time.time()
         try:
-            yield
+            with phase(f"trainer.{op}"):
+                yield
         finally:
             self.row[f"end.{op}"] = time.time()
 
@@ -226,3 +240,149 @@ def span_durations(rows: List[Dict]) -> Dict[str, List[float]]:
                 if isinstance(s, float) and isinstance(e, float):
                     durations.setdefault(op, []).append(e - s)
     return durations
+
+
+# --- phase spans ---------------------------------------------------------------
+
+# (name, parent index or -1, step or None, thread id, t0_ns, t1_ns or None
+# while open), in the order the spans started
+Record = Tuple[str, int, Optional[int], int, int, Optional[int]]
+FIELDS = ("name", "parent", "step", "thread", "t0_ns", "t1_ns")
+
+_records: List[list] = []       # the latest profiled run's spans, as mutable Records
+_lock = threading.Lock()        # guards _records' indices
+
+
+class _Thread(threading.local):
+    """A thread's open spans: whether one is open, whether they record (the
+    answer of the outermost; a profiler runs on the thread that started
+    it), the record indices of the recording ones, and whether the
+    thread's latest outermost span recorded."""
+
+    def __init__(self):
+        self.inside = False
+        self.on = False
+        self.open: List[int] = []
+        self.last_on = False
+
+
+_thread = _Thread()
+
+
+class _Null:
+    """A span nested in one that does not record: nothing at all."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        pass
+
+    def __exit__(self, *exc):
+        pass
+
+
+class _OffTop:
+    """An outermost span while no profiler runs: it marks the thread as
+    inside a span, so the spans nested in it need not ask the profiler."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        _thread.inside = True
+
+    def __exit__(self, *exc):
+        _thread.inside = False
+
+
+_NULL, _OFF_TOP = _Null(), _OffTop()
+
+
+class _On:
+    """A recording span: a ``record_function`` range and one record.  The
+    record's clock is read before the range opens and after it closes, so
+    it holds the range: the profiler stamps its event's start and end
+    inside ``record_function``'s enter and exit, which take tens of us
+    under a profiler."""
+
+    __slots__ = ("name", "step", "top", "rf", "rec")
+
+    def __init__(self, name: str, step: Optional[int], top: bool):
+        self.name, self.step, self.top = name, step, top
+
+    def __enter__(self):
+        from torch.autograd.profiler import record_function
+
+        t = _thread
+        t.inside = True
+        self.rf = record_function(self.name)
+        with _lock:
+            i = len(_records)
+            self.rec = [self.name, t.open[-1] if t.open else -1, self.step,
+                        threading.get_ident(), time_ns(), None]
+            _records.append(self.rec)
+        t.open.append(i)
+        self.rf.__enter__()
+
+    def __exit__(self, *exc):
+        self.rf.__exit__(*exc)
+        self.rec[5] = time_ns()
+        t = _thread
+        t.open.pop()
+        if self.top:
+            t.inside = False
+
+
+def phase(name: str, step: Optional[int] = None):
+    """A context manager spanning one phase of the program, recorded while a
+    ``torch.profiler`` session runs.
+
+    The outermost span of a thread asks the profiler whether it is on, and
+    the spans nested in it take that answer.  Off, a span reads no clock,
+    makes no ``record_function`` call and allocates nothing.  On, it opens
+    ``record_function(name)`` and keeps ``(name, parent, step, thread,
+    t0_ns, t1_ns)``; an outermost span that records after one that did not
+    starts the record anew, so it holds the latest profiled run (two
+    profiler sessions with no span between them share one record).  A span
+    adds no device work, synchronization or host read."""
+    t = _thread
+    if t.inside:
+        return _On(name, step, False) if t.on else _NULL
+    import torch  # here, so that the CSV tools import no torch
+
+    t.on = torch.autograd._profiler_enabled()
+    if t.on and not t.last_on:
+        with _lock:
+            _records.clear()
+    t.last_on = t.on
+    return _On(name, step, True) if t.on else _OFF_TOP
+
+
+def records() -> List[Record]:
+    """The record, in the order the spans started (``t1_ns`` None while a
+    span is open)."""
+    with _lock:
+        return [tuple(r) for r in _records]
+
+
+def totals() -> Dict[str, Tuple[int, int, int]]:
+    """``{name: (count, total_ns, self_ns)}`` of the record's closed spans;
+    self time is a span's duration less its children's."""
+    recs = records()
+    out: Dict[str, List[int]] = {}
+    for name, parent, _, _, t0, t1 in recs:
+        if t1 is None:
+            continue
+        agg = out.setdefault(name, [0, 0, 0])
+        agg[0] += 1
+        agg[1] += t1 - t0
+        agg[2] += t1 - t0
+        if parent >= 0 and recs[parent][5] is not None:   # counted already
+            out[recs[parent][0]][2] -= t1 - t0
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def write_json(path) -> None:
+    """The record and its totals as JSON: ``{"fields", "records",
+    "totals"}``."""
+    Path(path).write_text(json.dumps({"fields": FIELDS, "records": records(),
+                                      "totals": totals()}))

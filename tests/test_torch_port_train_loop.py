@@ -277,4 +277,6 @@ def test_cli_profile_and_host_metrics(tmp_path, stub_inception, capsys):
                  "--host_metrics", str(tmp_path / "host.csv"))
     assert cli.main(argv) == 0
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    recorded = json.loads((tmp_path / "prof" / "spans.json").read_text())
+    assert {"trainer.calc_gradients", "engine.chunk", "engine.d_step"} <= set(recorded["totals"])
     assert (tmp_path / "host.csv").read_text().startswith("time,cpu_percent")

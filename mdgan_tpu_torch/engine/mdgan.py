@@ -22,8 +22,24 @@ Per round (``MDGANEngine._step``, ``:392-483``, with ``_d_region``,
 
 Swaps (``sample_swap_perm``/``swap``, ``:531-590``) permute the
 discriminators' params and BN stats; Adam moments stay put unless
-``swap_opt_state``.  A loop over the N discriminators is the first form;
-batching them into grouped convolutions is later work.
+``swap_opt_state``.
+
+**The discriminators as one network** (the JAX engine vmaps its stacked
+discriminators, ``:246-291``).  Where the discriminator is stackable
+(``models/layers.py`` :func:`stackable`: ConvBlock stages, then one Conv2d,
+no dropout; the DCGANs), steps 3 and 4 run the rank's N/W discriminators
+as one grouped-convolution network on channel-stacked batches
+(:meth:`MDGANEngine._d_region_stacked`): each D input (N/W, b, C, H, W)
+becomes (b, N/W*C, H, W), every conv is a grouped conv of N/W groups (run
+as one batched GEMM), BatchNorm runs over the stacked channels with each
+worker's own statistics, and the
+weights are copied dense from strided (N/W, *shape) views of the
+worker-major arenas (``engine/state.py`` :meth:`NetState.stacked`) once a
+D step and once a feedback, and their gradients written back through the
+same views into the arena Adam reads.  The real and fake forwards stay two
+forwards.  Other discriminators (MLP-GAN's dropout,
+StyleGAN2's modulated convs and minibatch statistic) run one worker at a
+time (:meth:`MDGANEngine._d_region_loop`).
 
 **Stragglers** (``--straggler_rate``, ``:404-414, 445-459, 476-479``): every
 round draws u ~ U(0,1) for the N workers from lane (STRAGGLER, step) and the
@@ -81,8 +97,10 @@ Both engines mark their phases with the same spans (``obs/spans.py``
 (``run_rounds``), ``engine.sample`` (each sampling launch),
 ``engine.round``, and inside it ``engine.generate`` (step 1),
 ``engine.d_step`` (a local epoch of step 3), ``engine.feedback`` (step 4)
-and ``engine.g_update`` (step 5); ``engine.collective`` around each
-collective of an active axis, ``engine.metrics`` around the chunk's metrics,
+and ``engine.g_update`` (step 5); ``engine.d_stacked`` inside the D step and
+the feedback around each forward of the stacked discriminators (2 a local
+epoch, 1 a feedback); ``engine.collective`` around each collective of an
+active axis, ``engine.metrics`` around the chunk's metrics,
 ``engine.swap``.  There is no span per worker.
 """
 
@@ -99,7 +117,8 @@ from mdgan_tpu_torch.core.config import TrainConfig, k_batches, resolve_device
 from mdgan_tpu_torch.core.mesh import RankLayout, rank_layout
 from mdgan_tpu_torch.core.registry import DatasetSpec
 from mdgan_tpu_torch.engine.state import MDGANState, NetState, moment_dtype
-from mdgan_tpu_torch.models.layers import dcgan_init_
+from mdgan_tpu_torch.models.layers import (dcgan_init_, stack_batches, stackable,
+                                           stacked_forward, stacked_weights)
 from mdgan_tpu_torch.obs.spans import phase
 from mdgan_tpu_torch.ops import losses
 from mdgan_tpu_torch.ops.sampling import sample_normalize
@@ -417,8 +436,75 @@ class MDGANEngine(EngineBase):
         ``mdgan.py:203-310``): worker n's ``local_epochs`` Adam steps on its
         real batch and fake batch ``(n+1) % k`` of ``x_k`` (k, b_r, C, H, W),
         one Adam launch a local epoch for all of them, then its feedback on
-        batch ``n % k`` (:meth:`_feedback`).  Returns ``mean_d_loss`` and
-        ``g_feedback_loss`` (N/W,) and the feedbacks (N/W, b_r, C, H, W)."""
+        batch ``n % k`` (:meth:`_feedback`).  The discriminators run as one
+        network where they are stackable (:meth:`_d_region_stacked`), else
+        one at a time (:meth:`_d_region_loop`).  Returns ``mean_d_loss``
+        and ``g_feedback_loss`` (N/W,) and the feedbacks (N/W, b_r, C, H,
+        W)."""
+        if stackable(st.d.modules[0]):
+            return self._d_region_stacked(st, real, x_k)
+        return self._d_region_loop(st, real, x_k, masks)
+
+    def _feedback(self, st: MDGANState, x_g: torch.Tensor, masks: Optional[Masks] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Step (4): worker n's ``BCE(D_n(x_g[n]), 1)`` through its updated
+        discriminator and the gradient with respect to ``x_g[n]``; x_g:
+        (N/W, b_r, C, H, W), a tensor of its own.  Returns the losses (N/W,)
+        and the feedbacks."""
+        if stackable(st.d.modules[0]):
+            return self._feedback_stacked(st, x_g)
+        return self._feedback_loop(st, x_g, masks)
+
+    def _d_region_stacked(self, st: MDGANState, real: torch.Tensor, x_k: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """:meth:`_d_region` with the rank's discriminators as one grouped
+        network (``models/layers.py``): each local epoch's real and fake
+        forwards (each with its own batch statistics) on the dense weights,
+        the gradient of every one of them written over its rows of the
+        ``grads`` arena (cast to float32 in the same copy), and Adam."""
+        cfg, d = self.cfg, st.d.modules[0]
+        params, grads = st.d.stacked(st.d.params), st.d.stacked(st.d.grads)
+        stats = st.d.stacked(st.d.stats, stats=True)
+        x_d = x_k[self._d_assign]
+        d_loss_sum = torch.zeros(self.layout.per_rank, device=self.device)
+        for _ in range(cfg.local_epochs):
+            with phase("engine.d_step"):
+                with self._autocast():
+                    w = {k: t.detach().requires_grad_(True)
+                         for k, t in stacked_weights(d, params).items()}
+                    with phase("engine.d_stacked"):
+                        logits_real = stacked_forward(d, stack_batches(real), w, stats)
+                    with phase("engine.d_stacked"):
+                        logits_fake = stacked_forward(d, stack_batches(x_d), w, stats)
+                    loss = losses.d_loss(logits_real, logits_fake, self._total)
+                for name, g in zip(w, torch.autograd.grad(loss.sum(), list(w.values()))):
+                    grads[name].copy_(g.reshape(grads[name].shape))
+                self._replica_sum(st.d.grads)
+                st.d.adam_step(cfg.discriminator_opt)
+                d_loss_sum += loss.detach()
+        g_losses, feedback = self._feedback_stacked(st, x_k[self._g_assign])
+        return d_loss_sum / cfg.local_epochs, g_losses, feedback
+
+    def _feedback_stacked(self, st: MDGANState, x_g: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`_feedback` through the rank's discriminators as one grouped
+        network; the gradient comes back in ``x_g``'s (N/W, b_r, C, H, W)."""
+        d = st.d.modules[0]
+        with phase("engine.feedback"):
+            x_g = x_g.requires_grad_(True)
+            with self._autocast():
+                w = stacked_weights(d, st.d.stacked(st.d.params))
+                with phase("engine.d_stacked"):
+                    logits = stacked_forward(d, stack_batches(x_g), w,
+                                             st.d.stacked(st.d.stats, stats=True))
+                g_losses = losses.g_loss(logits, self._total)
+            (feedback,) = torch.autograd.grad(g_losses.sum(), x_g)
+        return g_losses.detach(), feedback
+
+    def _d_region_loop(self, st: MDGANState, real: torch.Tensor, x_k: torch.Tensor,
+                       masks: Optional[Masks] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """:meth:`_d_region` one discriminator at a time."""
         cfg, lo, nl = self.cfg, self.layout.lo, self.layout.per_rank
         x_d = x_k[self._d_assign]
         d_loss_sum = torch.zeros(nl, device=self.device)
@@ -435,15 +521,12 @@ class MDGANEngine(EngineBase):
                 self._replica_sum(st.d.grads)
                 st.d.adam_step(cfg.discriminator_opt)
                 d_loss_sum += loss.detach()
-        g_losses, feedback = self._feedback(st, x_k[self._g_assign], masks)
+        g_losses, feedback = self._feedback_loop(st, x_k[self._g_assign], masks)
         return d_loss_sum / cfg.local_epochs, g_losses, feedback
 
-    def _feedback(self, st: MDGANState, x_g: torch.Tensor, masks: Optional[Masks] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Step (4): worker n's ``BCE(D_n(x_g[n]), 1)`` through its updated
-        discriminator and the gradient with respect to ``x_g[n]``; x_g:
-        (N/W, b_r, C, H, W), a tensor of its own.  Returns the losses (N/W,)
-        and the feedbacks."""
+    def _feedback_loop(self, st: MDGANState, x_g: torch.Tensor, masks: Optional[Masks] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`_feedback` one discriminator at a time."""
         lo, nl = self.layout.lo, self.layout.per_rank
         with phase("engine.feedback"):
             x_g = x_g.requires_grad_(True)

@@ -13,7 +13,10 @@ arenas, worker-major:
 Every ``nn.Parameter`` (and its ``.grad``) and every BN buffer is a view into
 its arena.  So one kernel launch runs Adam over a whole network (all N
 discriminators at once, as the stacked JAX leaves do), and a discriminator
-swap is one gather along the worker axis of each arena.
+swap is one gather along the worker axis of each arena.  A leaf of all n
+copies at once is a strided (n, *shape) view of its arena
+(:meth:`NetState.stacked`), which the discriminators that run as one
+grouped network read and write (``engine/mdgan.py``).
 
 ``apply_train_pair`` (``state.py:62-95``) fuses the real and fake D forwards
 with a chained running-stat formula that reproduces two sequential
@@ -106,6 +109,20 @@ class NetState:
         """Named views of copy ``w`` of a stats-shaped arena (``stats`` or a
         clone of it)."""
         return self._named(arena, w * self.stat_numel, self.stat_names, self.stat_shapes)
+
+    def stacked(self, arena: torch.Tensor, stats: bool = False) -> Dict[str, torch.Tensor]:
+        """Named (n, *shape) views of every copy's leaves of a params-shaped
+        arena (of a stats-shaped one with ``stats``): row w is copy w's."""
+        size = self.stat_numel if stats else self.numel
+        names, shapes = ((self.stat_names, self.stat_shapes) if stats
+                         else (self.param_names, self.param_shapes))
+        rows = arena.view(self.n, size)
+        out, off = {}, 0
+        for name, shape in zip(names, shapes):
+            numel = int(np.prod(shape))
+            out[name] = rows[:, off:off + numel].view(self.n, *shape)
+            off += numel
+        return out
 
     @staticmethod
     def _named(arena, off, names, shapes) -> Dict[str, torch.Tensor]:

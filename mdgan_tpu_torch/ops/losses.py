@@ -8,7 +8,9 @@ becomes the numerically stable softplus forms
 
 Each loss is a mean over the batch, or, with ``total`` (a batch split over
 replica ranks), this rank's part of the whole batch's mean: its rows' sum
-over ``total``, which the replicas' parts add up to.
+over ``total``, which the replicas' parts add up to.  The batch is the
+logits' first axis: (b,) logits give one loss, the (b, n) logits of n
+stacked discriminators give n.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch.nn.functional as F
 
 
 def _mean(x: torch.Tensor, total: Optional[int]) -> torch.Tensor:
-    return x.mean() if total is None else x.sum() / total
+    return x.mean(0) if total is None else x.sum(0) / total
 
 
 def bce_real(logits: torch.Tensor, total: Optional[int] = None) -> torch.Tensor:

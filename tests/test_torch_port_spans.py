@@ -23,7 +23,10 @@ WIDTH, B, ROUNDS, EPOCHS, N = 8, 4, 2, 2, 2
 COUNTS = {
     "mdgan": {"engine.chunk": 1, "engine.sample": 1, "engine.round": ROUNDS,
               "engine.generate": ROUNDS, "engine.d_step": ROUNDS * EPOCHS,
-              "engine.feedback": ROUNDS, "engine.g_update": ROUNDS, "engine.metrics": 1},
+              "engine.feedback": ROUNDS, "engine.g_update": ROUNDS, "engine.metrics": 1,
+              # DCGAN-32's discriminators run stacked: 2 forwards a local
+              # epoch and 1 a feedback
+              "engine.d_stacked": ROUNDS * (2 * EPOCHS + 1)},
     "standalone": {"engine.chunk": 1, "engine.sample": 1, "engine.round": ROUNDS,
                    "engine.generate": ROUNDS, "engine.d_step": ROUNDS * EPOCHS,
                    "engine.g_update": ROUNDS * EPOCHS, "engine.metrics": 1},

@@ -3,7 +3,8 @@ check against the reference, and the result line.
 
 Set-up (``setup_s`` runs from process start to the window's start): the
 program's engine, the inputs made from the seed (weights, pixels, indices,
-latents), a fresh state holding the weights, then the check's three
+latents, and the generator's noise where the family declares any), a fresh
+state holding the weights, then the check's three
 rounds through the window's own call (``run_rounds`` on the window's feed,
 in the chunks of ``check.CHECK_CHUNKS``: one round, then a chunk of the
 rest), whose losses, first gradients (the Adam state after one step) and
@@ -11,13 +12,13 @@ parameter changes are kept, then a warm chunk of ``WARM_ROUNDS`` rounds.  The sa
 
 The window runs whole chunks of the cell's ``chunk`` rounds until
 ``--seconds`` have passed, and ends at a host read of every chunk's losses;
-``rounds_per_s`` is its rounds over its wall time.  With ``--trace 1`` the
-window is followed by ``traced_chunks`` chunks under ``torch.profiler``
-(CPU and CUDA activities, no schedule); the per-layer metrics read that
-slice, and ``mfu`` the untraced window's rate.  With ``--trace 0``, a cell
-that reports ``device_ms_per_round`` runs one chunk of the traffic's
-``device_rounds`` rounds under the profiler after the window, and that
-metric is the slice's device-busy time over its rounds.
+``wall_rounds_per_s`` is its rounds over its wall time.  With ``--trace 1``
+the window is followed by ``traced_chunks`` chunks under ``torch.profiler``
+(CPU and CUDA activities, no schedule), which the other per-layer metrics
+read.  With ``--trace 0``, a cell that reports ``device_ms_per_round`` runs
+one chunk of the traffic's ``device_rounds`` rounds under the profiler
+after the window, and that metric is the slice's device-busy time over its
+rounds.
 
 After the window, the peak memory is read, the program's state freed, and
 the reference runs the same first rounds from the same inputs, made again
@@ -111,6 +112,7 @@ class Rank:
         self.fam, self.mode = cell.family, cell.mode
         self.cfg, self.traffic = cell.config, cell.traffic
         self.program = self.mode.Program(self.fam, self.cfg, self.traffic, self.dev)
+        self.noise_shapes = spec.noise_shapes(self.fam, self.cfg)
         self.chunk_i = 0
 
     # --- messages between ranks (gloo, host only) ---
@@ -149,14 +151,19 @@ class Rank:
             self.ctl = None
 
     # --- the program ---
-    def latents(self, rounds: int) -> torch.Tensor:
-        z = inputs.latents(self.dev, self.seed, self.chunk_i, rounds,
-                           self.mode.latents_per_round(self.traffic), self.cfg["z_dim"])
-        self.chunk_i += 1
-        return z
+    def draws(self, rounds: int):
+        """The next chunk's latents, and its noise where the family declares
+        any (else None)."""
+        i, self.chunk_i = self.chunk_i, self.chunk_i + 1
+        per_round = self.mode.latents_per_round(self.traffic)
+        z = inputs.latents(self.dev, self.seed, i, rounds, per_round, self.cfg["z_dim"])
+        if self.noise_shapes is None:
+            return z, None
+        return z, inputs.noise(self.dev, self.seed, i, rounds, per_round, self.noise_shapes)
 
     def chunk(self, rounds: int) -> Dict[str, torch.Tensor]:
-        return self.program.chunk(self.st, self.data, self.sampler, rounds, self.latents(rounds))
+        z, noise = self.draws(rounds)
+        return self.program.chunk(self.st, self.data, self.sampler, rounds, z, noise)
 
     def prepare(self, seed: int) -> dict:
         """A fresh state from the seed's weights, driven through the check
@@ -260,9 +267,11 @@ def merge(readings: List[dict]) -> dict:
 
 def reference(cell: spec.Cell, seed: int, dev, precision: str = "float32", fault=None) -> dict:
     """The reference's readings of the check rounds: the same inputs, made
-    again from the seed, for all N workers.  ``fault`` "gather" feeds every
-    round of a check chunk its first round's rows (a gather that reads the
-    wrong round); the others are the reference's own (``reference.rounds``)."""
+    again from the seed, for all N workers, and where the family declares
+    noise the mode's reference gets ``noise``: each input's (rounds, k*b,
+    *shape) over the check chunks.  ``fault`` "gather" feeds every round of
+    a check chunk its first round's rows (a gather that reads the wrong
+    round); the others are the reference's own (``reference.rounds``)."""
     fam, mode, cfg, traffic = cell.family, cell.mode, cell.config, cell.traffic
     n, size = traffic["num_workers"], mode.shard_size(cfg, traffic)
     workers = list(range(n))
@@ -273,12 +282,19 @@ def reference(cell: spec.Cell, seed: int, dev, precision: str = "float32", fault
         blocks, fault = [np.broadcast_to(b[:1], b.shape) for b in blocks], None
     reals = inputs.real_batches(dev, seed, workers, size, cfg["image_shape"],
                                 np.concatenate(blocks))
-    zs = torch.cat([inputs.latents(dev, seed, i, rounds, mode.latents_per_round(traffic),
-                                   cfg["z_dim"]) for i, rounds in enumerate(check.CHECK_CHUNKS)])
+    per_round = mode.latents_per_round(traffic)
+    zs = torch.cat([inputs.latents(dev, seed, i, rounds, per_round, cfg["z_dim"])
+                    for i, rounds in enumerate(check.CHECK_CHUNKS)])
+    extra = {}
+    shapes = spec.noise_shapes(fam, cfg)
+    if shapes is not None:
+        chunks = [inputs.noise(dev, seed, i, rounds, per_round, shapes)
+                  for i, rounds in enumerate(check.CHECK_CHUNKS)]
+        extra["noise"] = [torch.cat(parts) for parts in zip(*chunks)]
     ops = Ops(precision)
     with float32_exact(), ops.context(torch.device(dev)):
         out = mode.reference(fam, cfg, traffic, g, [ds[w] for w in workers], reals,
-                             list(zs.unbind(0)), ops, fault)
+                             list(zs.unbind(0)), ops, fault, **extra)
     return check.reduce_reference(out, leaf_dict(g, ds))
 
 
@@ -366,8 +382,6 @@ def ranked(cell_name: str, job: dict, device: str, t_start: float, overrides=Non
 
 
 def e2e_value(name: str, got: dict) -> float:
-    if name == "rounds_per_s":
-        return got["rounds"] / got["window_s"]
     if name == "setup_s":
         return got["setup_s"]
     if name == "device_ms_per_round":     # rank 0's card; none where no device ran

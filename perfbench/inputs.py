@@ -14,7 +14,11 @@ come from a ``torch.Generator`` on the run's device, in a few large calls.
 * indices: per worker an epoch permutation of its shard, batches taken in
   order without replacement, a new permutation when a batch no longer fits
   (so the rows of the first rounds all differ);
-* latents: a chunk's ``(T, k*b, z_dim)`` normals.
+* latents: a chunk's ``(T, k*b, z_dim)`` normals;
+* noise: where the family declares ``noise_shapes(cfg)``, a chunk's
+  generator noise, one ``(T, k*b, *shape)`` tensor of normals a declared
+  input, each input its own generator.  Its tag comes after the others, so
+  a family with noise changes no other stream's values.
 """
 
 from __future__ import annotations
@@ -24,8 +28,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-# stream tags
-WEIGHTS_G, WEIGHTS_D, IMAGES, INDICES, LATENTS = range(5)
+# stream tags: a new stream is appended, so every existing one keeps its number
+WEIGHTS_G, WEIGHTS_D, IMAGES, INDICES, LATENTS, NOISE = range(6)
 
 
 def key(seed: int, *path: int) -> int:
@@ -95,6 +99,16 @@ def latents(device, seed: int, chunk: int, rounds: int, per_round: int,
     """Chunk ``chunk``'s (rounds, per_round, z_dim) latents."""
     return torch.randn(rounds, per_round, z_dim, device=device,
                        generator=generator(device, seed, LATENTS, chunk))
+
+
+def noise(device, seed: int, chunk: int, rounds: int, per_round: int,
+          shapes: Sequence[Sequence[int]]) -> List[torch.Tensor]:
+    """Chunk ``chunk``'s generator noise: for input ``i`` of ``shapes`` (the
+    per-sample shapes, in order) a (rounds, per_round, *shapes[i]) tensor of
+    N(0, 1), drawn by the generator of (seed, NOISE, chunk, i)."""
+    return [torch.randn(rounds, per_round, *shape, device=device,
+                        generator=generator(device, seed, NOISE, chunk, i))
+            for i, shape in enumerate(shapes)]
 
 
 def real_batches(device, seed: int, workers: Sequence[int], shard_size: int,

@@ -63,5 +63,7 @@ class Program(program.Program):
         super().__init__(eng, cfg, device, list(eng.layout.workers), shard_size(cfg, traffic))
 
 
-def reference(fam, cfg: dict, traffic: dict, g, ds: List[dict], reals, zs, ops, fault=None):
-    return rounds.mdgan_rounds(fam, cfg, traffic["num_workers"], g, ds, reals, zs, ops, fault)
+def reference(fam, cfg: dict, traffic: dict, g, ds: List[dict], reals, zs, ops, fault=None,
+              noise=None):
+    return rounds.mdgan_rounds(fam, cfg, traffic["num_workers"], g, ds, reals, zs, ops, fault,
+                               noise)

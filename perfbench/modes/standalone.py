@@ -1,8 +1,9 @@
 """The standalone mode: the program's ``StandaloneEngine.run_rounds`` (one
 generator, one discriminator), and the reference's standalone round.
 
-Traffic keys: ``batch_size``, ``chunk``, ``traced_chunks``; ``num_workers``
-is 1 and ``ranks`` 1.
+Traffic keys: ``batch_size``, ``chunk``, ``traced_chunks``, ``device_rounds``
+(the rounds of the chunk ``device_ms_per_round`` reads); ``num_workers`` is
+1 and ``ranks`` 1.
 """
 
 from __future__ import annotations
@@ -57,5 +58,7 @@ class Program(program.Program):
         super().__init__(eng, cfg, device, [0], shard_size(cfg, traffic))
 
 
-def reference(fam, cfg: dict, traffic: dict, g, ds: List[dict], reals, zs, ops, fault=None):
-    return rounds.standalone_rounds(fam, cfg, g, ds[0], [r[0] for r in reals], zs, ops, fault)
+def reference(fam, cfg: dict, traffic: dict, g, ds: List[dict], reals, zs, ops, fault=None,
+              noise=None):
+    return rounds.standalone_rounds(fam, cfg, g, ds[0], [r[0] for r in reals], zs, ops, fault,
+                                    noise)

@@ -1,10 +1,11 @@
 """What the modes share in driving the port: its training configuration at a
 cell's sizes, the benchmark's weights in a fresh state, the shards, a chunk
-through ``run_rounds``, and an arena's leaves by the reference's names."""
+through ``run_rounds`` (with the generator's noise where the family takes
+any), and an arena's leaves by the reference's names."""
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -55,8 +56,12 @@ class Program:
             inputs.shard(self.device, seed, w, self.shard_size, self.cfg["image_shape"], out[i])
         return out
 
-    def chunk(self, st, data, sampler, num_rounds: int, z) -> Dict[str, torch.Tensor]:
-        m = self.eng.run_rounds(st, data, sampler, num_rounds, z=z)
+    def chunk(self, st, data, sampler, num_rounds: int, z,
+              noise: Optional[List[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """``run_rounds`` on the chunk's latents and, where the family takes
+        noise, its noise (``inputs.noise``)."""
+        extra = {} if noise is None else {"noise": noise}
+        m = self.eng.run_rounds(st, data, sampler, num_rounds, z=z, **extra)
         return {k: m[k] for k in self.losses}
 
     def leaves(self, st, arena: str) -> Dict[str, torch.Tensor]:

@@ -17,6 +17,11 @@ Standalone round: one fake batch from the round-start generator, then per
 local epoch a discriminator step on (real, that batch) and a generator step
 on ``BCE(D(G(z)), 1)`` through the updated discriminator.
 
+Where the family's generator takes noise (``noise_shapes``), ``noise``
+holds each noise input's (rounds, samples, *shape), and every generator
+forward of round t gets each input's slice t; otherwise the generator gets
+no noise argument.
+
 Leaves are named ``g/<name>`` and ``d<w>/<name>`` (w the worker).  A
 ``fault`` plants one of the faults the benchmark's check must catch, in the
 reference put in the program's place: ``"half"`` (half of each real batch
@@ -77,6 +82,13 @@ def _named(prefix: str, net: Net, grads) -> Dict[str, torch.Tensor]:
             for (name, p), gv in zip(net.p.items(), grads)}
 
 
+def _generate(fam, cfg, p, z, ops, noise, t: int):
+    """The generator's forward of round t."""
+    if noise is None:
+        return fam.generator(cfg, p, z, ops)
+    return fam.generator(cfg, p, z, ops, noise=[x[t] for x in noise])
+
+
 def _d_train_loss(fam, cfg, d: Net, real, fake, ops, fault):
     if fault == "half":
         real = real[:real.shape[0] // 2]
@@ -87,19 +99,20 @@ def _d_train_loss(fam, cfg, d: Net, real, fake, ops, fault):
 
 def mdgan_rounds(fam, cfg: dict, num_workers: int, g_params, d_params: List[dict],
                  reals: Sequence[torch.Tensor], zs: Sequence[torch.Tensor], ops,
-                 fault=None) -> dict:
+                 fault=None, noise=None) -> dict:
     """len(reals) rounds from the given weights.  reals[t]: (N, b, C, H, W)
-    float32 in [-1, 1]; zs[t]: (k*b, z_dim).  Returns ``losses`` (a dict a
-    round: ``mean_d_loss`` and ``g_feedback_loss`` (N,), ``feedback_norm``
-    ()), ``grads`` (the first round's gradient of every leaf as Adam got
-    it) and ``params`` (every leaf after the last round)."""
+    float32 in [-1, 1]; zs[t]: (k*b, z_dim); noise (or None): a list of
+    (rounds, k*b, *shape).  Returns ``losses`` (a dict a round:
+    ``mean_d_loss`` and ``g_feedback_loss`` (N,), ``feedback_norm`` ()),
+    ``grads`` (the first round's gradient of every leaf as Adam got it) and
+    ``params`` (every leaf after the last round)."""
     n, k = num_workers, k_batches(num_workers)
     g, ds = Net(g_params), [Net(p) for p in d_params]
     grads0: Dict[str, torch.Tensor] = {}
     out = []
     for t, (real, z) in enumerate(zip(reals, zs)):
         b = real.shape[1]
-        x_all = fam.generator(cfg, g.p, z, ops)
+        x_all = _generate(fam, cfg, g.p, z, ops, noise, t)
         x_k = x_all.detach().view(k, b, *x_all.shape[1:])
         d_loss = torch.zeros(n, device=z.device)
         g_loss = torch.zeros(n, device=z.device)
@@ -135,24 +148,26 @@ def mdgan_rounds(fam, cfg: dict, num_workers: int, g_params, d_params: List[dict
 
 def standalone_rounds(fam, cfg: dict, g_params, d_params: dict,
                       reals: Sequence[torch.Tensor], zs: Sequence[torch.Tensor], ops,
-                      fault=None) -> dict:
+                      fault=None, noise=None) -> dict:
     """len(reals) standalone rounds.  reals[t]: (b, C, H, W); zs[t]:
-    (b, z_dim).  Returns ``losses`` (``mean_d_loss``, ``mean_g_loss`` a
-    round), ``grads`` (the first local epoch's gradients) and ``params``."""
+    (b, z_dim); noise (or None): a list of (rounds, b, *shape).  Returns
+    ``losses`` (``mean_d_loss``, ``mean_g_loss`` a round), ``grads`` (the
+    first local epoch's gradients) and ``params``."""
     g, d = Net(g_params), Net(d_params)
     grads0: Dict[str, torch.Tensor] = {}
     out = []
     epochs = cfg["local_epochs"]
     for t, (real, z) in enumerate(zip(reals, zs)):
         with torch.no_grad():
-            fake0 = fam.generator(cfg, g.p, z, ops)
+            fake0 = _generate(fam, cfg, g.p, z, ops, noise, t)
         d_sum = torch.zeros((), device=z.device)
         g_sum = torch.zeros((), device=z.device)
         for e in range(epochs):
             loss, real_term = _d_train_loss(fam, cfg, d, real, fake0, ops, fault)
             gd = torch.autograd.grad(loss, list(d.p.values()), allow_unused=True)
             d.adam(gd, cfg)
-            gl = bce_real(fam.discriminator(cfg, d.p, fam.generator(cfg, g.p, z, ops), ops))
+            fake = _generate(fam, cfg, g.p, z, ops, noise, t)
+            gl = bce_real(fam.discriminator(cfg, d.p, fake, ops))
             gg = torch.autograd.grad(gl, list(g.p.values()), allow_unused=True)
             if t == 0 and e == 0:
                 grads0.update({**_named("d0", d, gd), **_named("g", g, gg)})

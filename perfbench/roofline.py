@@ -49,9 +49,11 @@ def per_sample_flops(fam, cfg: dict, batch: int = 2) -> Dict[str, int]:
     the generator's forward and its backward to its parameters (the latent
     needs none), a discriminator's forward, its backward to its parameters
     (the D step: the image needs none) and its backward to the image alone
-    (the error feedback)."""
+    (the error feedback).  A generator that takes noise (the family's
+    ``noise_shapes``) gets zeros of the declared shapes."""
     from torch.utils.flop_counter import FlopCounterMode
 
+    from perfbench import spec
     from perfbench.reference.ops import Ops
 
     ops = Ops("float32")
@@ -71,15 +73,18 @@ def per_sample_flops(fam, cfg: dict, batch: int = 2) -> Dict[str, int]:
 
     h, w, c = cfg["image_shape"]
     z = torch.empty(batch, cfg["z_dim"], device=meta)
+    shapes = spec.noise_shapes(fam, cfg)
+    extra = {} if shapes is None else {
+        "noise": [torch.zeros(batch, *s, device=meta) for s in shapes]}
     g = leaves("g", True)
-    img = fam.generator(cfg, g, z, ops)
+    img = fam.generator(cfg, g, z, ops, **extra)
     d = leaves("d", True)
     x = torch.empty(batch, c, h, w, device=meta)
     logits = fam.discriminator(cfg, d, x, ops)
     xg = torch.empty(batch, c, h, w, device=meta, requires_grad=True)
     logits_g = fam.discriminator(cfg, d, xg, ops)
     return {
-        "g_fwd": count(lambda: fam.generator(cfg, g, z, ops)),
+        "g_fwd": count(lambda: fam.generator(cfg, g, z, ops, **extra)),
         "g_bwd": count(lambda: torch.autograd.grad(img, list(g.values()), torch.ones_like(img),
                                                    allow_unused=True)),
         "d_fwd": count(lambda: fam.discriminator(cfg, d, x, ops)),

@@ -4,14 +4,15 @@ A cell (``workloads`` entry) names a configuration and a traffic mix:
 
 * the configuration's JSON file is the one ``configs`` gives it; its
   ``family`` names the reference module beside it,
-  ``perfbench/configs/<family>.py``;
+  ``perfbench/configs/<family>.py``, which may declare the generator's
+  noise inputs (``noise_shapes``);
 * the traffic mix is ``perfbench/traffic/<traffic>.json``; its ``mode``
   names the module that drives the program, ``perfbench/modes/<mode>.py``;
 * the limits of the check are ``perfbench/limits/<cell>.json``;
 * a per-layer metric is read by ``perfbench/metrics/<metric>.py``; a
-  quantity split by the end-to-end metric it moves (``mfu`` and
-  ``mfu.host``) is read by the file of its first part, where the whole
-  name has none.
+  quantity split by the end-to-end metric it moves
+  (``launches_per_round.device``) is read by the file of its first part,
+  where the whole name has none.
 
 So a new cell, configuration, traffic mix or metric is a new file and a new
 entry, and no file here changes.
@@ -25,7 +26,7 @@ import importlib.util
 import json
 from pathlib import Path
 from types import ModuleType
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -44,6 +45,14 @@ def _load_path(path: Path, name: str) -> ModuleType:
 
 def family(name: str) -> ModuleType:
     return importlib.import_module(f"perfbench.configs.{name}")
+
+
+def noise_shapes(fam: ModuleType, cfg: dict) -> Optional[List[tuple]]:
+    """The per-sample shapes of the generator's noise inputs, in order, where
+    the family declares them (``noise_shapes(cfg)``); None where its
+    generator takes no noise."""
+    declared = getattr(fam, "noise_shapes", None)
+    return None if declared is None else [tuple(s) for s in declared(cfg)]
 
 
 def mode(name: str) -> ModuleType:

@@ -1,5 +1,6 @@
 """The yardstick's counts: parameters, FLOPs a round (frozen in the
-configuration files) and the bytes the two kernels' rooflines charge."""
+configuration files) and the bytes the two kernels' rooflines charge; every
+configuration of ``BENCHMARK.json`` and every cell, found by name."""
 
 import json
 
@@ -11,22 +12,25 @@ from perfbench import roofline, spec
 from perfbench.reference.ops import Ops
 from perfbench.tests import tiny
 
-# the issue's parameter counts
-PARAMS = {"dcgan32_cifar10": (3_448_576, 663_296)}
-CONFIGS = sorted(PARAMS)
+# DCGAN-32's parameter counts at the MD-GAN reference's widths (ngf = ndf =
+# 64, z 100), counted from its layers
+DCGAN32_PARAMS = (3_448_576, 663_296)
+CONFIGS = [c["name"] for c in spec.benchmark()["configs"]]
 
 
 def _config(name):
-    cell = next(c for c in tiny.cells() if spec.cell(c).config["dataset"] ==
-                {"dcgan32_cifar10": "CIFAR10"}[name])
-    return spec.cell(cell)
+    """The first cell of configuration ``name``."""
+    return spec.cell(next(w["name"] for w in spec.benchmark()["workloads"]
+                          if w["config"] == name))
 
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_parameter_counts(name):
     cell = _config(name)
     g, d = (roofline.leaf_elements(cell.family, cell.config, n) for n in ("g", "d"))
-    assert (g, d) == PARAMS[name] == (cell.config["g_params"], cell.config["d_params"])
+    assert (g, d) == (cell.config["g_params"], cell.config["d_params"])
+    if name == "dcgan32_cifar10":
+        assert (g, d) == DCGAN32_PARAMS
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -61,15 +65,19 @@ def _meta_round_flops(cell) -> int:
     def leaves(net):
         return {k: torch.empty(s, device=meta) for k, s, _ in cell.family.leaves(cfg, net)}
 
+    per_round = mode.latents_per_round(traffic)
     reals = [torch.empty(n, b, c, h, w, device=meta)]
-    zs = [torch.empty(mode.latents_per_round(traffic), cfg["z_dim"], device=meta)]
+    zs = [torch.empty(per_round, cfg["z_dim"], device=meta)]
+    shapes = spec.noise_shapes(cell.family, cfg)
+    extra = {} if shapes is None else {
+        "noise": [torch.zeros(1, per_round, *s, device=meta) for s in shapes]}
     with FlopCounterMode(display=False) as counter:
         mode.reference(cell.family, cfg, traffic, leaves("g"), [leaves("d") for _ in range(n)],
-                       reals, zs, Ops("float32"))
+                       reals, zs, Ops("float32"), **extra)
     return counter.get_total_flops()
 
 
-@pytest.mark.parametrize("name", ["dcgan32_mdgan_n8", "dcgan32_standalone"])
+@pytest.mark.parametrize("name", tiny.cells())
 def test_round_flops_formula(name):
     cell = spec.cell(name)
     assert cell.mode.flops_per_round(cell.config, cell.traffic) == _meta_round_flops(cell)

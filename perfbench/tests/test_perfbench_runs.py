@@ -58,7 +58,7 @@ def test_traced_run_schema(cell):
     assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
     assert all(len(v) <= 10 for v in res["breakdown"].values())
     # on the CPU no device event is traced: only the metrics that need none
-    assert set(res["metrics"]) <= {"mfu", "wall_rounds_per_s"}
+    assert set(res["metrics"]) <= {"wall_rounds_per_s"}
     assert set(res["metrics"]) <= {m["name"] for m in spec.cell(cell).per_layer}
 
 

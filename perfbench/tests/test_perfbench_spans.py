@@ -1,7 +1,7 @@
 """The readers of the program's phase spans (``perfbench/phases.py``) on a
-made-up record: the standalone cell's unsuffixed metrics, the same files
-read under a ``.device`` name in the N=8 cell, and None where the record
-is empty, is not of the slice, or the slice drove no device."""
+made-up record: the metrics under their ``.device`` names in both cells,
+and None where the record is empty, is not of the slice, or the slice
+drove no device."""
 
 import pytest
 
@@ -42,23 +42,23 @@ def record(monkeypatch):
     return got
 
 
-@pytest.mark.parametrize("cell,suffix", [("dcgan32_standalone", ""),
-                                         ("dcgan32_mdgan_n8", ".device")])
-def test_readers_on_a_made_up_record(record, cell, suffix):
+@pytest.mark.parametrize("cell", ["dcgan32_standalone", "dcgan32_mdgan_n8"])
+def test_readers_on_a_made_up_record(record, cell):
     record.update(RECORD)
-    got = values(reading(cell), suffix)
+    got = values(reading(cell), ".device")
     assert got["d_region_host_ms_per_round"] == (20 + 8) / 4
     assert got["g_region_host_ms_per_round"] == (4 + 4) / 4
     assert got["host_us_per_launch"] == 40_000 / 1000
 
 
 def test_standalone_cell_reports_the_readers():
-    assert set(NAMES) <= {m["name"] for m in spec.cell("dcgan32_standalone").per_layer}
+    assert {n + ".device" for n in NAMES} <= {m["name"] for m in
+                                              spec.cell("dcgan32_standalone").per_layer}
 
 
 def test_standalone_record_without_feedback(record):
     record.update({k: v for k, v in RECORD.items() if k != "engine.feedback"})
-    assert values(reading("dcgan32_standalone"), "")["d_region_host_ms_per_round"] == 20 / 4
+    assert values(reading("dcgan32_standalone"), ".device")["d_region_host_ms_per_round"] == 20 / 4
 
 
 @pytest.mark.parametrize("case", ["empty", "other rounds", "no device"])
@@ -76,4 +76,4 @@ def test_none_from_a_program_without_phase_spans(monkeypatch):
     from mdgan_tpu_torch.obs import spans
 
     monkeypatch.delattr(spans, "totals")
-    assert values(reading("dcgan32_standalone"), "") == {n: None for n in NAMES}
+    assert values(reading("dcgan32_standalone"), ".device") == {n: None for n in NAMES}

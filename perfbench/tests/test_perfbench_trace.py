@@ -1,6 +1,7 @@
 """Reading a trace: busy and idle time, gaps by host operator, and the
 per-layer metrics' readers, on made-up events."""
 
+import pytest
 from torch.autograd import DeviceType
 
 from perfbench import harness, roofline, spec, trace
@@ -64,20 +65,22 @@ def test_readers_on_made_up_events():
            "ranks": [{"summary": s, "traced_rounds": 1}]}
     r = harness.Reading(cell, got)
     value = {m["name"]: spec.metric_reader(m["name"]).read(r) for m in cell.per_layer}
-    assert value["launches_per_round"] == 4
-    assert value["device_idle_pct"] == 70.0
-    assert value["layout_ms_per_round"] == 100 / 1e6
+    assert value["wall_rounds_per_s"] == 50.0
+    assert value["launches_per_round.device"] == 4
+    assert value["layout_ms_per_round.device"] == 100 / 1e6
     adam_bytes = roofline.adam_bytes(cell.config["g_params"] + cell.config["d_params"], "float32")
-    assert value["adam_roofline"] == 100 * adam_bytes / roofline.HBM_BYTES_PER_S / 100e-9
+    assert value["adam_roofline.device"] == 100 * adam_bytes / roofline.HBM_BYTES_PER_S / 100e-9
     flops = cell.mode.flops_per_round(cell.config, cell.traffic)
-    assert value["mfu"] == 100 * flops * 50.0 / roofline.PEAK_FLOPS["bfloat16"]
+    busy_s = s["busy_ns"] / 1e9
+    assert value["mfu.device"] == 100 * flops / busy_s / roofline.PEAK_FLOPS["bfloat16"]
 
 
-def test_device_metrics_on_made_up_events():
-    """The headline cell's per-layer readers (the ``.device`` split read by
-    the same files, ``mfu.device`` over busy time) and its end-to-end
-    ``device_ms_per_round``."""
-    cell = spec.cell("dcgan32_mdgan_n8")
+@pytest.mark.parametrize("cell_name", ["dcgan32_mdgan_n8", "dcgan32_standalone"])
+def test_device_metrics_on_made_up_events(cell_name):
+    """Each cell's per-layer readers (the ``.device`` split read by the
+    files of the names' first parts, ``mfu.device`` over busy time) and
+    its end-to-end ``device_ms_per_round``."""
+    cell = spec.cell(cell_name)
     s = trace.summarize(EVENTS)
     got = {"rounds": 100, "window_s": 2.0,
            "ranks": [{"summary": s, "traced_rounds": 2, "device_busy_ns": 3e6}]}
@@ -85,7 +88,8 @@ def test_device_metrics_on_made_up_events():
     value = {m["name"]: spec.metric_reader(m["name"]).read(r) for m in cell.per_layer}
     assert set(value) == {"wall_rounds_per_s", "mfu.device", "launches_per_round.device",
                           "adam_roofline.device", "sampling_roofline.device",
-                          "layout_ms_per_round.device"}
+                          "layout_ms_per_round.device", "d_region_host_ms_per_round.device",
+                          "g_region_host_ms_per_round.device", "host_us_per_launch.device"}
     assert value["wall_rounds_per_s"] == 50.0
     assert value["launches_per_round.device"] == 2
     flops = cell.mode.flops_per_round(cell.config, cell.traffic)

@@ -1,9 +1,11 @@
 """Small sizes of every cell for CPU runs: each configuration's widths cut,
-float32 compute (the CPU's bfloat16 is slow), chunks of 2 rounds."""
+float32 compute (the CPU's bfloat16 is slow), chunks of 2 rounds.
 
-OVERRIDES = {
-    "dcgan32_cifar10": {"ngf": 32, "ndf": 32, "num_images": 800, "compute_dtype": "float32"},
-}
+A configuration's sizes are the keys of its ``configs`` file that the CPU
+runs change, in ``tests/tiny/<config>.json``: a new configuration brings its
+own file, and no file here changes."""
+
+import json
 
 
 def overrides(cell_name: str) -> dict:
@@ -11,7 +13,11 @@ def overrides(cell_name: str) -> dict:
 
     bench = spec.benchmark()
     entry = next(w for w in bench["workloads"] if w["name"] == cell_name)
-    return {"config": dict(OVERRIDES[entry["config"]]), "traffic": {"chunk": 2}}
+    path = spec.HERE / "tests" / "tiny" / f"{entry['config']}.json"
+    if not path.is_file():
+        raise FileNotFoundError(f"configuration {entry['config']!r} (cell {cell_name!r}) has "
+                                f"no CPU sizes: add {path}")
+    return {"config": json.loads(path.read_text()), "traffic": {"chunk": 2}}
 
 
 def cells():

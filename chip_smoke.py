@@ -29,6 +29,19 @@ with its seconds:
            ``mdgan_tpu_torch.core.timing.time_ms``; a reading the host's
            issue could reach fails the phase) and the host's issue time per
            call
+  upfirdn2d  the FIR resampling kernel (``csrc/upfirdn2d.cu``) at every
+           resampling shape of StyleGAN2 config-f at 256x256 (the generator's
+           up-modconv FIRs and RGB skips at b=8, the discriminator's two
+           blurs a block at b=4), float32 and bfloat16: forward and backward
+           against the plain version on the card (float32 TF32 off: rtol
+           1e-5 of the largest output; bfloat16: within one rounding of the
+           float32 sum), each call's forward device time against its byte
+           bound (input read once, output written once), against the plain
+           version's and against the one cuDNN call that computes it (a
+           depthwise ``conv2d``, or at up=2 a depthwise stride-2
+           ``conv_transpose2d``); then two config-f MD-GAN rounds (N=8, b=4,
+           bfloat16) through ``run_rounds``, the kernel's launches counted
+           from them: 600 a round
   golden   the committed JAX-trained generator through ``from_jax``: a
            train-mode forward on the card equals the CPU's (float32, TF32 off)
   round    two narrow MD-GAN rounds (N=2, width 8) on the card against the
@@ -700,6 +713,175 @@ def no_tf32():
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def upfirdn2d_sites(b_g: int = 8, b_d: int = 4):
+    """Every resampling call of one config-f generator forward (b_g images)
+    and one discriminator forward (b_d): (name, input shape, up, pad)."""
+    from mdgan_tpu_torch.models import stylegan2f
+
+    def ch(res):
+        return stylegan2f.nf(int(math.log2(res)) - 1)
+
+    sites = []
+    for res in (8, 16, 32, 64, 128, 256):
+        sites.append((f"g_up{res}", (b_g, ch(res), res + 1, res + 1), 1, (1, 1, 1, 1)))
+        sites.append((f"g_rgb{res}", (b_g, 3, res // 2, res // 2), 2, (2, 1, 2, 1)))
+        sites.append((f"d_blur{res}", (b_d, ch(res), res, res), 1, (2, 2, 2, 2)))
+        sites.append((f"d_skip{res}", (b_d, ch(res), res, res), 1, (1, 1, 1, 1)))
+    return sites
+
+
+def upfirdn2d_library(x, k, up: int, pad):
+    """The one cuDNN call that computes a config-f resampling site: with
+    up=1 and equal pads a depthwise ``conv2d`` with the flipped filter, with
+    up=2 and pads (2, 1, 2, 1) a depthwise stride-2 ``conv_transpose2d``
+    cropped by 1 (its scatter is the true convolution of the zero-inserted
+    plane).  Returns a function of the input."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    c, taps = x.shape[1], np.ascontiguousarray(k[::-1, ::-1] if up == 1 else k)
+    w = torch.from_numpy(taps).to(x)[None, None].expand(c, 1, *k.shape).contiguous()
+    if up == 1:
+        require(len(set(pad)) == 1, f"upfirdn2d library call: unequal pads {pad}")
+        return lambda t: F.conv2d(t, w, padding=pad[0], groups=c)
+    require(up == 2 and tuple(pad) == (2, 1, 2, 1),
+            f"upfirdn2d library call: up {up}, pads {pad}")
+    return lambda t: F.conv_transpose2d(t, w, stride=2, padding=1, groups=c)
+
+
+@no_tf32()
+def phase_upfirdn2d():
+    """The FIR resampling kernel against its plain version at config-f's
+    resampling shapes, forward and backward, in float32 and bfloat16; each
+    site's forward device time against the byte bound, the plain version's
+    and cuDNN's one call (``upfirdn2d_library``); then config-f MD-GAN
+    rounds with the kernel's launches counted from them
+    (``upfirdn2d_rounds``)."""
+    import torch
+
+    from mdgan_tpu_torch.core.timing import bound_ms, time_ms
+    from mdgan_tpu_torch.models import stylegan2f
+    from mdgan_tpu_torch.ops import upfirdn2d as fir
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        recs = {}
+        for name, shape, up, pad in upfirdn2d_sites():
+            k = stylegan2f._FIR_UP if name.startswith("g_") else stylegan2f._FIR
+            x = torch.randn(shape, generator=gen, device=dev).to(dtype).requires_grad_(True)
+            before = fir.upfirdn2d.launches
+            y = fir.upfirdn2d(x, k, up=up, pad=pad)
+            dy = torch.randn(y.shape, generator=gen, device=dev).to(dtype)
+            (dx,) = torch.autograd.grad(y, x, dy)
+            require(fir.upfirdn2d.launches - before == 2,
+                    f"upfirdn2d {name}: {fir.upfirdn2d.launches - before} launches for a "
+                    "forward and its backward, want 2")
+            xr = x.detach().float().requires_grad_(True)
+            yr = fir.upfirdn2d_plain(xr, k, up=up, pad=pad)
+            (dxr,) = torch.autograd.grad(yr, xr, dy.float())
+            library = upfirdn2d_library(x.detach(), k, up, pad)
+            errs = {}
+            for what, got, want in (("forward", y, yr), ("backward", dx, dxr),
+                                    ("library", library(x.detach()), yr)):
+                got, want = got.detach().float(), want.detach().float()
+                err = (got - want).abs()
+                # float32: the sums' order; bfloat16: the float32 sum rounded
+                # once (half a bfloat16 ulp), plus the order where it cancels
+                scale = 1e-5 * want.abs().max()
+                if dtype == torch.bfloat16:
+                    scale = scale + 2.0 ** -8 * want.abs()
+                ok = bool((err <= scale).all())
+                require(ok, f"upfirdn2d {name} {dtype} {what}: max err {float(err.max())}")
+                errs[what] = float(err.max())
+            nbytes = (x.numel() + y.numel()) * x.element_size()
+            xs = [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                  for _ in range(max(1, math.ceil(2 * L2_BYTES / nbytes)))]
+            it = itertools.count()
+            t = time_ms(lambda: fir.upfirdn2d(xs[next(it) % len(xs)], k, up=up, pad=pad), 20)
+            k_dev = torch.from_numpy(k).to(dev)  # the plain version's filter, on the card
+            plain_t = time_ms(lambda: fir.upfirdn2d_plain(xs[next(it) % len(xs)], k_dev, up=up,
+                                                          pad=pad), 10)
+            lib_t = time_ms(lambda: library(xs[next(it) % len(xs)]), 20)
+            b_ms, b_by = bound_ms(nbytes, 2 * 16 * y.numel())
+            recs[name] = {"shape": list(shape), "up": up, "pad": list(pad), "bytes": nbytes,
+                          "ms": t["ms"], "plain_ms": plain_t["ms"], "library_ms": lib_t["ms"],
+                          "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / t["ms"],
+                          "max_abs_err": errs}
+            del x, y, dx, xr, yr, dxr, xs, library
+        sums = {key: sum(r[key] for r in recs.values())
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        out[str(dtype).split(".")[-1]] = {
+            "calls": recs, "forward_ms": sums["ms"], "plain_ms": sums["plain_ms"],
+            "library_ms": sums["library_ms"], "bound_ms": sums["bound_ms"],
+            "bound_by": "/".join(sorted({r["bound_by"] for r in recs.values()})),
+            "share_of_bound": sums["bound_ms"] / sums["ms"],
+            "max_abs_err": max(e for r in recs.values() for e in r["max_abs_err"].values())}
+    torch.cuda.empty_cache()
+    out["mdgan_rounds"] = upfirdn2d_rounds()
+    return out
+
+
+def upfirdn2d_rounds(rounds: int = 2, n: int = 8, b: int = 4, blocks: int = 6):
+    """``rounds`` MD-GAN rounds of config-f at full width on the card (N=8,
+    b=4, bfloat16, 16 random images a shard) through ``run_rounds``: losses
+    finite, and the FIR kernel's launches counted from them.  Each of the
+    ``blocks`` (8 to 256 px) has two resampling sites in the generator (the
+    up-modconv's FIR, the RGB skip) and two in the discriminator (its
+    blurs), each one launch a forward and one a backward: the generator's
+    forward and VJP, and each worker's real and fake forwards, their
+    backward, and the feedback's forward and backward."""
+    import numpy as np
+    import torch
+
+    from mdgan_tpu_torch.core.config import TrainConfig
+    from mdgan_tpu_torch.core.registry import get as get_spec
+    from mdgan_tpu_torch.data.sampler import ShardSampler
+    from mdgan_tpu_torch.engine.mdgan import MDGANEngine
+    from mdgan_tpu_torch.ops import upfirdn2d as fir
+
+    eng = MDGANEngine(get_spec("LSUNChurch256"), TrainConfig(batch_size=b,
+                                                             compute_dtype="bfloat16"), n)
+    st = eng.init_state(7)
+    rng = np.random.default_rng(7)
+    data = eng.shard_data(rng.integers(0, 256, (n, 16, 256, 256, 3), dtype=np.uint8))
+    fir.upfirdn2d.launches = 0
+    t = time.perf_counter()
+    m = eng.run_rounds(st, data, ShardSampler(n, 16, b, seed=7), rounds)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launched = fir.upfirdn2d.launches
+    want = rounds * (2 * 2 * blocks + n * 6 * 2 * blocks)
+    losses = {k: m[k].float().cpu().tolist() for k in ("mean_d_loss", "g_feedback_loss")}
+    require(all(math.isfinite(v) for vals in losses.values() for row in vals for v in row),
+            f"config-f rounds: losses {losses}")
+    require(launched == want, f"config-f rounds: {launched} upfirdn2d launches, want {want}")
+    del eng, st, data, m
+    torch.cuda.empty_cache()
+    return {"rounds": rounds, "num_workers": n, "batch_size": b, "launches": launched,
+            "seconds": seconds, **losses}
+
+
+def upfirdn2d_entry(rec: dict) -> dict:
+    """The FIR kernel's entry of the ``kernels`` line: its launches on the
+    main path (``upfirdn2d_rounds``), and its bfloat16 forward times
+    (config-f's compute dtype) summed over the sites of one generator
+    forward (8 images) and one discriminator forward (4 images), against
+    the plain version's, cuDNN's and the byte bound.  The JAX package has
+    no such kernel: NVlabs' StyleGAN2 ships it as its own CUDA op."""
+    bf16, rounds = rec["bfloat16"], rec["mdgan_rounds"]
+    times = {k: bf16[k] for k in ("plain_ms", "library_ms", "bound_ms", "bound_by")}
+    return {"name": "upfirdn2d", "route": "cuda", "source": "mdgan_tpu_torch/csrc/upfirdn2d.cu",
+            "replaces": None, "launches": rounds["launches"],
+            "max_abs_err": max(rec[d]["max_abs_err"] for d in ("float32", "bfloat16")),
+            "ms": bf16["forward_ms"], **times,
+            "by_path": {"stylegan2f_mdgan_bfloat16": {"launches": rounds["launches"],
+                                                      "ms": bf16["forward_ms"], **times}}}
 
 
 @no_tf32()
@@ -2367,6 +2549,10 @@ def main() -> int:
     emit({"phase": "build", "seconds": kernels_s, "built": built,
           "library": path.name, "ptxas": ptxas, "host_library": host_library})
 
+    t = time.perf_counter()
+    fir_rec = phase_upfirdn2d()
+    emit({"phase": "upfirdn2d", "seconds": time.perf_counter() - t, "card": smi, **fir_rec})
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t = time.perf_counter()
@@ -2532,6 +2718,7 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "by_path": by_path[key]})
+    kernels.append(upfirdn2d_entry(fir_rec))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

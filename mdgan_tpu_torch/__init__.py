@@ -18,13 +18,14 @@ MD-GAN run shards its discriminators over the ranks, one process a GPU.
 Layout (mirrors ``mdgan_tpu``):
     core/      config dataclasses, dataset registry, random lanes, device choice,
                the rank layout and the process group
-    data/      MNIST / CIFAR-10 / CelebA / FFHQ-128 / synthetic loaders (a C++
-               host decoder and threaded gather in native/), partitioner,
-               sampler, checksum-verified downloads
-    models/    DCGAN-32, MLP-GAN, DCGAN-64, StyleGAN2, flax-convention
-               BatchNorm, JAX weight import/export, reference torch
-               checkpoint interop
-    ops/       losses and the CUDA kernel wrappers (+ their build)
+    data/      MNIST / CIFAR-10 / CelebA / FFHQ-128 / LSUN Church 256 /
+               synthetic loaders (a C++ host decoder and threaded gather in
+               native/), partitioner, sampler, checksum-verified downloads
+    models/    DCGAN-32, MLP-GAN, DCGAN-64, StyleGAN2, StyleGAN2 config-f,
+               flax-convention BatchNorm, JAX weight import/export,
+               reference torch checkpoint interop
+    ops/       losses and the CUDA kernel wrappers (Adam, sampling, FIR
+               resampling; + their build)
     engine/    arena-backed network state, the MD-GAN and standalone rounds,
                the trainers (host loop, evals, exports, checkpoints)
     metrics/   InceptionV3, FID and IS

@@ -21,6 +21,9 @@ DROPOUT = 4
 SWAP = 5
 EVAL = 6
 STRAGGLER = 7
+# The port's own: a generator's per-pixel noise (StyleGAN2 config-f), keyed
+# by (step, noise input).  The JAX engines draw none.
+NOISE = 8
 
 
 def seed_for(seed: int, tag: int, step: int = 0, *path: int) -> int:

@@ -4,7 +4,8 @@ Its own :class:`DatasetSpec`, :func:`register` and :func:`get`: the JAX
 registry imports its built-ins, which pull in flax.  The port registers the
 JAX package's six datasets (``data/builtin.py``): ``MNIST`` and
 ``SyntheticMNIST`` (MLP-GAN), ``CIFAR10`` and ``Synthetic32`` (DCGAN-32),
-``CelebA`` (DCGAN-64) and ``FFHQ128`` (StyleGAN2).
+``CelebA`` (DCGAN-64) and ``FFHQ128`` (StyleGAN2); and its own
+``LSUNChurch256`` (StyleGAN2 config-f).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Built-in dataset plugins: MNIST, CIFAR-10, CelebA, FFHQ-128 and the
-procedural Synthetic32 / SyntheticMNIST.
+"""Built-in dataset plugins: MNIST, CIFAR-10, CelebA, FFHQ-128, LSUN Church
+256 and the procedural Synthetic32 / SyntheticMNIST.
 
 Copies of ``mdgan_tpu/data/builtin.py:36-77`` (:func:`synthesize`),
 ``:83-281`` (the idx reader and :func:`load_mnist`, :func:`load_cifar10`,
@@ -15,6 +15,10 @@ present and the library is unavailable, the port decodes it with the plain
 numpy version, and where its files are missing or corrupt it raises; the JAX
 package falls through to the pickle batches and from there to synthetic
 data.
+
+``LSUNChurch256`` (StyleGAN2 config-f, ``models/stylegan2f.py``) is the
+port's own: a packed npz of (n, 256, 256, 3) uint8 if present, else
+synthetic pixels (:func:`load_lsun_church256`).  Nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -30,7 +34,12 @@ import numpy as np
 
 from mdgan_tpu_torch.core import registry
 from mdgan_tpu_torch.data import native
-from mdgan_tpu_torch.models import dcgan32, dcgan64, layers, mlp_gan, stylegan2
+from mdgan_tpu_torch.models import dcgan32, dcgan64, layers, mlp_gan, stylegan2, stylegan2f
+
+# LSUN Church outdoor's train split (Yu et al., 2015), StyleGAN2's 256x256 set
+LSUN_CHURCH_TRAIN = 126227
+# the most synthetic 256x256 stand-ins made (800 MB of uint8)
+LSUN_SYNTHETIC_CAP = 4096
 
 
 def synthesize(
@@ -207,6 +216,20 @@ def load_ffhq128(data_dir: str, split: str = "train", fallback: str = "synthetic
     return synthesize((128, 128, 3), n, seed=128)
 
 
+def load_lsun_church256(data_dir: str, split: str = "train", fallback: str = "synthetic",
+                        max_examples: Optional[int] = None):
+    """LSUN Church outdoor at 256x256: packed npz of (n, 256, 256, 3) uint8
+    (key ``images``) if present, else synthetic, at most
+    ``LSUN_SYNTHETIC_CAP`` images."""
+    npz = _find(data_dir, "lsun/church256.npz", "church256.npz")
+    if npz is not None:
+        return _load_npz(npz, max_examples)
+    if fallback != "synthetic":
+        raise FileNotFoundError(f"LSUN Church 256 files not found under {data_dir}")
+    n = min(max_examples or LSUN_CHURCH_TRAIN, LSUN_SYNTHETIC_CAP)
+    return synthesize((256, 256, 3), n, seed=256)
+
+
 def _load_npz(path: Path, max_examples: Optional[int]):
     with np.load(path) as z:
         data = z["images"]
@@ -249,3 +272,8 @@ _register("FFHQ128", stylegan2, stylegan2.StyleGAN2Generator,
           init_weights=stylegan2.stylegan2_init_,
           g_widths=("base_features", "max_res", "map_layers"),
           d_widths=("base_features", "max_res"))
+_register("LSUNChurch256", stylegan2f, stylegan2f.StyleGAN2FGenerator,
+          stylegan2f.StyleGAN2FDiscriminator, load_lsun_church256,
+          init_weights=stylegan2f.stylegan2f_init_,
+          g_widths=("fmap_base", "fmap_max", "max_res", "map_layers"),
+          d_widths=("fmap_base", "fmap_max", "max_res"))

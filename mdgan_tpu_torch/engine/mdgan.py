@@ -92,6 +92,13 @@ each launch's output within ``GATHER_CAP_BYTES`` (256 MiB): one launch a
 chunk at CIFAR-10 (98 MB for 100 rounds at N=8, b=10), several at
 128x128x3 (1.57 GB).
 
+**Generator noise.**  A generator that takes per-pixel noise (StyleGAN2
+config-f) declares its inputs' per-sample shapes (``noise_shapes()``).  Each
+round's G forward gets one (k*b, *shape) tensor an input: the round's slice
+of ``run_rounds(..., noise=)``, or drawn from lane (NOISE, step, input); a
+replica keeps its rows, as of z, and the G backward reuses that forward's
+graph.  The other families take no noise, and their rounds draw none.
+
 Both engines mark their phases with the same spans (``obs/spans.py``
 :func:`phase`, recorded only under ``torch.profiler``): ``engine.chunk``
 (``run_rounds``), ``engine.sample`` (each sampling launch),
@@ -132,9 +139,9 @@ Masks = Dict[Tuple[int, ...], Sequence[torch.Tensor]]
 
 
 class EngineBase:
-    """What both engines share: the device, the compute dtype, the latent
-    and dropout lanes, the family's init, index upload, the chunk's gather
-    and generator sampling."""
+    """What both engines share: the device, the compute dtype, the latent,
+    noise and dropout lanes, the family's init, index upload, the chunk's
+    gather and generator sampling."""
 
     def __init__(self, spec: DatasetSpec, train_cfg: TrainConfig,
                  model_kwargs: Optional[Dict] = None):
@@ -142,7 +149,8 @@ class EngineBase:
         there is none); ``model_kwargs`` passes width keywords to the model
         factories, each to the nets whose ``spec.g_widths``/``d_widths``
         name it (``ngf``/``ndf`` for the DCGANs; ``base_features``,
-        ``max_res`` and ``map_layers`` for StyleGAN2)."""
+        ``max_res`` and ``map_layers`` for StyleGAN2; ``fmap_base``,
+        ``fmap_max``, ``max_res`` and ``map_layers`` for its config-f)."""
         self._g_moments = moment_dtype(train_cfg.generator_opt)
         self._d_moments = moment_dtype(train_cfg.discriminator_opt)
         if train_cfg.compute_dtype not in ("float32", "bfloat16"):
@@ -158,6 +166,7 @@ class EngineBase:
         self._bf16 = train_cfg.compute_dtype == "bfloat16"
         self._zgen = torch.Generator(device=self.device)
         self._dropgen = torch.Generator(device=self.device)
+        self._noisegen = torch.Generator(device=self.device)
         self._init = spec.init_weights or dcgan_init_
 
     def _kw(self, widths: Sequence[str]) -> Dict:
@@ -217,21 +226,63 @@ class EngineBase:
         prng.reseed(self._zgen, seed, prng.LATENT, step)
         return torch.randn(num, self.spec.z_dim, generator=self._zgen, device=self.device)
 
+    @staticmethod
+    def noise_shapes(g: NetState) -> Optional[List[tuple]]:
+        """The per-sample shapes of the generator's noise inputs, in order;
+        None where it takes no noise."""
+        shapes = getattr(g.modules[0], "noise_shapes", None)
+        return None if shapes is None else shapes()
+
+    def _noise(self, g: NetState, seed: int, step: int, num: int
+               ) -> Optional[List[torch.Tensor]]:
+        """``num`` samples of each noise input, input i from lane (NOISE,
+        step, i); None where the generator takes no noise."""
+        shapes = self.noise_shapes(g)
+        if shapes is None:
+            return None
+        return [torch.randn(num, *shape, device=self.device,
+                            generator=prng.reseed(self._noisegen, seed, prng.NOISE, step, i))
+                for i, shape in enumerate(shapes)]
+
+    def _check_noise(self, g: NetState, noise, num_rounds: int) -> None:
+        """``run_rounds``' noise: one (T, samples, *shape) tensor an input."""
+        if noise is None:
+            return
+        shapes = self.noise_shapes(g)
+        if shapes is None:
+            raise ValueError(f"{self.spec.name}'s generator takes no noise")
+        if len(noise) != len(shapes) or any(n.shape[0] != num_rounds or
+                                            tuple(n.shape[2:]) != tuple(s)
+                                            for n, s in zip(noise, shapes)):
+            raise ValueError(f"noise must be {len(shapes)} tensors of (T={num_rounds}, "
+                             f"samples, *shape) with shapes {shapes}, got "
+                             f"{[tuple(n.shape) for n in noise]}")
+
+    @staticmethod
+    def _g_forward(g, z: torch.Tensor, noise: Optional[List[torch.Tensor]]) -> torch.Tensor:
+        return g(z) if noise is None else g(z, noise)
+
     @torch.no_grad()
-    def generate(self, g: NetState, z: torch.Tensor) -> torch.Tensor:
+    def generate(self, g: NetState, z: torch.Tensor,
+                 noise: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         """G(z) with train-mode BN, as ``sample_fn`` (``mdgan.py:596-608``);
-        G's running stats are left as they were."""
+        G's running stats are left as they were.  A generator that takes
+        noise draws its own where ``noise`` is None."""
         saved = g.stats.clone()
         with self._autocast():
-            out = g.modules[0](z)
+            out = self._g_forward(g.modules[0], z, noise)
         g.stats.copy_(saved)
         return out
 
     def sample(self, g: NetState, num: int, seed: int) -> torch.Tensor:
-        """``num`` images from lane (EVAL, seed)."""
+        """``num`` images from lane (EVAL, seed): the latents, then any
+        noise."""
         gen = prng.generator(seed, prng.EVAL, 0, device=self.device)
-        return self.generate(g, torch.randn(num, self.spec.z_dim, generator=gen,
-                                            device=self.device))
+        z = torch.randn(num, self.spec.z_dim, generator=gen, device=self.device)
+        shapes = self.noise_shapes(g)
+        noise = None if shapes is None else [
+            torch.randn(num, *shape, generator=gen, device=self.device) for shape in shapes]
+        return self.generate(g, z, noise)
 
 
 class MDGANEngine(EngineBase):
@@ -391,10 +442,12 @@ class MDGANEngine(EngineBase):
         return m
 
     def _round(self, st: MDGANState, real: torch.Tensor, z: Optional[torch.Tensor],
-               masks: Optional[Masks] = None,
-               fb_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+               masks: Optional[Masks] = None, fb_mask: Optional[torch.Tensor] = None,
+               noise: Optional[List[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """The round's body on this rank's real batches ``real``,
-        (N/W, b_r, C, H, W) float32.  The metrics it returns are this rank's
+        (N/W, b_r, C, H, W) float32, with the round's k*b latents ``z`` and
+        noise (each drawn from its lane when None; this replica keeps its
+        rows of both).  The metrics it returns are this rank's
         parts: its workers' losses (summed over its rows, over the global b,
         under a replica split), the feedbacks' squared sum ``fb_sq`` and its
         rows of ``x_eval``; :meth:`_whole` makes them the run's."""
@@ -402,12 +455,16 @@ class MDGANEngine(EngineBase):
             if z is None:
                 z = self.latents(st)
             z = self._my_rows(z)
+            if noise is None:
+                noise = self._noise(st.g, st.seed, st.step, self.k * self.cfg.batch_size)
+            if noise is not None:
+                noise = [self._my_rows(x) for x in noise]
             if fb_mask is None and self.cfg.straggler_rate > 0.0:
                 fb_mask = self.straggler_mask(st)
 
             # (1) generate k*b fakes in one forward; the graph waits for (5)
             with phase("engine.generate"), self._autocast():
-                x_all = st.g.modules[0](z)
+                x_all = self._g_forward(st.g.modules[0], z, noise)
             x_k = x_all.detach().view(self.k, -1, *x_all.shape[1:])
             # (2)-(4) local D steps and feedback, then (5) the G step
             mean_d_loss, g_losses, feedback = self._d_region(st, real, x_k, masks)
@@ -586,22 +643,27 @@ class MDGANEngine(EngineBase):
         return buf[:-1].view(cot.shape).to(cot.dtype), buf[-1].to(fb_sq.dtype)
 
     def run_rounds(self, st: MDGANState, data: torch.Tensor, sampler, num_rounds: int,
-                   z: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                   z: Optional[torch.Tensor] = None,
+                   noise: Optional[List[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """One chunk of ``num_rounds`` rounds with indices from ``sampler``
         (the analogue of ``chunk_fn``): metrics stacked on a leading round
         axis, except ``x_eval``, which is the last round's.
 
         The chunk's real batches come from :meth:`_real_batches`: one
         sampling launch a chunk unless the chunk's output passes
-        ``GATHER_CAP_BYTES``.  z: optional (T, k*b, z_dim) latents.
+        ``GATHER_CAP_BYTES``.  z: optional (T, k*b, z_dim) latents; noise
+        (a generator that takes noise): optional, one (T, k*b, *shape)
+        tensor a noise input, in the generator's order; round t gets slice t.
         """
         if z is not None and z.shape[0] != num_rounds:
             raise ValueError(f"z holds {z.shape[0]} rounds of latents, want {num_rounds}")
+        self._check_noise(st.g, noise, num_rounds)
         with phase("engine.chunk", st.step):
             idx = sampler.next_chunk(num_rounds)[:, self.layout.lo:self.layout.hi, self._rows]
             idx = self.put_indices(idx, data.shape[1])
             out: List[Dict[str, torch.Tensor]] = [
-                self._round(st, real, None if z is None else z[t])
+                self._round(st, real, None if z is None else z[t],
+                            noise=None if noise is None else [x[t] for x in noise])
                 for t, real in enumerate(self._real_batches(data, idx))]
             with phase("engine.metrics"):
                 stacked = {key: torch.stack([m[key] for m in out])

@@ -19,7 +19,9 @@ local epoch.  A chunk's real batches are gathered as the MD-GAN engine
 gathers them (N=1): one sampling launch a chunk unless its output passes
 ``GATHER_CAP_BYTES``.  A discriminator with dropout keys its masks as the
 JAX round splits its dropout key (``:98-99``): local epoch i's D step by
-(step, i, 0, half), its G step's D forward by (step, i, 1).
+(step, i, 0, half), its G step's D forward by (step, i, 1).  A generator
+that takes noise gets the round's b samples of each noise input (given, or
+drawn from lane (NOISE, step, input)) in both of its forwards.
 """
 
 from __future__ import annotations
@@ -67,12 +69,15 @@ class StandaloneEngine(EngineBase):
         return self._round(st, real, z, masks)
 
     def _round(self, st: StandaloneState, real: torch.Tensor, z: Optional[torch.Tensor],
-               masks: Optional[Masks] = None) -> Dict[str, torch.Tensor]:
+               masks: Optional[Masks] = None,
+               noise: Optional[List[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """The round's body on its real batch ``real``, (b, C, H, W) float32."""
         cfg = self.cfg
         with phase("engine.round", st.step):
             if z is None:
                 z = self.latents(st)
+            if noise is None:
+                noise = self._noise(st.g, st.seed, st.step, cfg.batch_size)
             g_net, d_net = st.g.modules[0], st.d.modules[0]
             g_params = list(g_net.parameters())
 
@@ -81,7 +86,7 @@ class StandaloneEngine(EngineBase):
 
             # (1) the round's fake batch; this forward's G statistics are dropped
             with phase("engine.generate"):
-                fake0 = self.generate(st.g, z)
+                fake0 = self.generate(st.g, z, noise)
 
             d_sum = torch.zeros((), device=self.device)
             g_sum = torch.zeros((), device=self.device)
@@ -98,7 +103,7 @@ class StandaloneEngine(EngineBase):
                 with phase("engine.g_update"):
                     st.g.zero_grad()
                     with self._autocast():
-                        g_loss = losses.g_loss(d_fwd(g_net(z), i, 1))
+                        g_loss = losses.g_loss(d_fwd(self._g_forward(g_net, z, noise), i, 1))
                     g_loss.backward(inputs=g_params)
                     st.g.adam_step(cfg.generator_opt)
                 d_sum += d_loss.detach()
@@ -109,20 +114,24 @@ class StandaloneEngine(EngineBase):
                     "x_eval": fake0}
 
     def run_rounds(self, st: StandaloneState, data: torch.Tensor, sampler, num_rounds: int,
-                   z: Optional[torch.Tensor] = None) -> Dict:
+                   z: Optional[torch.Tensor] = None,
+                   noise: Optional[List[torch.Tensor]] = None) -> Dict:
         """One chunk of ``num_rounds`` rounds with indices from ``sampler``
         (a ``ShardSampler`` over one shard), the analogue of ``chunk_fn``:
         ``mean_d_loss`` and ``mean_g_loss`` (T,), ``x_eval`` the last
         round's fake batch, and ``idx`` the chunk's host indices (T, 1, b).
         The chunk's real batches come from :meth:`_real_batches`.
-        z: optional (T, b, z_dim) latents."""
+        z: optional (T, b, z_dim) latents; noise (a generator that takes
+        noise): optional, one (T, b, *shape) tensor a noise input."""
         if z is not None and z.shape[0] != num_rounds:
             raise ValueError(f"z holds {z.shape[0]} rounds of latents, want {num_rounds}")
+        self._check_noise(st.g, noise, num_rounds)
         with phase("engine.chunk", st.step):
             idx = sampler.next_chunk(num_rounds)
             reals = self._real_batches(data, self.put_indices(idx, data.shape[1]))
             out: List[Dict[str, torch.Tensor]] = [
-                self._round(st, real[0], None if z is None else z[t])
+                self._round(st, real[0], None if z is None else z[t],
+                            noise=None if noise is None else [x[t] for x in noise])
                 for t, real in enumerate(reals)]
             with phase("engine.metrics"):
                 stacked = {key: torch.stack([m[key] for m in out])

@@ -16,9 +16,11 @@ A copy, not an import, of the layout rules of
 
 Every model family has one map per role (:func:`role_of`): DCGAN-32
 (``generator``/``discriminator``), DCGAN-64, the MLP pair and StyleGAN2,
-whose map follows the module's resolutions and mapping depth.  Networks
-without BatchNorm (MLP, StyleGAN2) have no ``stat`` entries: their stats
-trees are empty.
+whose map follows the module's resolutions and mapping depth.  StyleGAN2
+config-f (``models/stylegan2f.py``) has no JAX counterpart: its map is the
+port's own flax-convention layout of its leaves, which its checkpoints and
+weight exports use.  Networks without BatchNorm (MLP, both StyleGAN2s) have
+no ``stat`` entries: their stats trees are empty.
 
 Trees are nested dicts of numpy arrays, or the flat ``params/...`` and
 ``batch_stats/...`` keys of a weights npz (``utils/checkpoint.py:117-137``).
@@ -43,7 +45,7 @@ from typing import Dict, Hashable, List, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
-from mdgan_tpu_torch.models import dcgan32, dcgan64, mlp_gan, stylegan2
+from mdgan_tpu_torch.models import dcgan32, dcgan64, mlp_gan, stylegan2, stylegan2f
 
 # (port state-dict key, flax path, kind);
 # kind in conv | convt | dense | const | scalar | vec | stat
@@ -133,6 +135,40 @@ def _stylegan2_d(resolutions: Tuple[int, ...]) -> List[_Entry]:
             + _dense("out", ("EqualDense_1",)))
 
 
+@functools.lru_cache(maxsize=None)
+def _stylegan2f_g(resolutions: Tuple[int, ...], map_layers: int) -> List[_Entry]:
+    def layer(port, path):
+        return _modconv(f"{port}.conv", path + ("conv",)) + [
+            (f"{port}.noise_strength", path + ("noise_strength",), "scalar"),
+            (f"{port}.bias", path + ("bias",), "vec")]
+
+    def trgb(port):
+        return _modconv(f"{port}.conv", (port, "conv")) + [(f"{port}.bias", (port, "bias"), "vec")]
+
+    out = [e for i in range(map_layers)
+           for e in _dense(f"mapping.layers.{i}", ("mapping", f"dense{i}"))]
+    out += [("const", ("const",), "const")] + layer("b4", ("b4",)) + trgb("trgb4")
+    for res in resolutions[1:]:
+        out += layer(f"b{res}.0", (f"b{res}", "up")) + layer(f"b{res}.1", (f"b{res}", "conv"))
+        out += trgb(f"trgb{res}")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _stylegan2f_d(resolutions: Tuple[int, ...]) -> List[_Entry]:
+    def conv(port, path, bias=True):
+        return [(f"{port}.weight", path + ("kernel",), "conv")] + (
+            [(f"{port}.bias", path + ("bias",), "vec")] if bias else [])
+
+    out = conv("from_rgb", ("from_rgb",))
+    for res in resolutions:
+        blk = f"b{res}"
+        out += (conv(f"{blk}.conv0", (blk, "conv0")) + conv(f"{blk}.conv1", (blk, "conv1"))
+                + conv(f"{blk}.skip", (blk, "skip"), bias=False))
+    return (out + conv("conv_out", ("conv_out",)) + _dense("fc", ("fc",))
+            + _dense("out", ("out",)))
+
+
 _FIXED_ROLES = {
     dcgan32.DCGANGenerator32: "generator",
     dcgan32.DCGANDiscriminator32: "discriminator",
@@ -146,13 +182,17 @@ _FIXED_ROLES = {
 def role_of(module: torch.nn.Module) -> Hashable:
     """The key of ``module``'s weight map: a name for the fixed-shape
     families, a tuple with the resolutions (and the mapping depth) for
-    StyleGAN2."""
+    StyleGAN2 and StyleGAN2 config-f."""
     if type(module) in _FIXED_ROLES:
         return _FIXED_ROLES[type(module)]
     if isinstance(module, stylegan2.StyleGAN2Generator):
         return ("stylegan2_generator", tuple(module.resolutions), len(module.mapping.layers))
     if isinstance(module, stylegan2.StyleGAN2Discriminator):
         return ("stylegan2_discriminator", tuple(module.resolutions))
+    if isinstance(module, stylegan2f.StyleGAN2FGenerator):
+        return ("stylegan2f_generator", tuple(module.resolutions), len(module.mapping.layers))
+    if isinstance(module, stylegan2f.StyleGAN2FDiscriminator):
+        return ("stylegan2f_discriminator", tuple(module.resolutions))
     raise TypeError(f"no JAX weight map for {type(module).__name__}")
 
 
@@ -161,7 +201,8 @@ def entries(role: Hashable) -> List[_Entry]:
     if isinstance(role, str):
         return MAPS[role]
     kind, *args = role
-    build = {"stylegan2_generator": _stylegan2_g, "stylegan2_discriminator": _stylegan2_d}
+    build = {"stylegan2_generator": _stylegan2_g, "stylegan2_discriminator": _stylegan2_d,
+             "stylegan2f_generator": _stylegan2f_g, "stylegan2f_discriminator": _stylegan2f_d}
     return build[kind](*args)
 
 

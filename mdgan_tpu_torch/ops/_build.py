@@ -28,7 +28,7 @@ from typing import List, Optional
 from mdgan_tpu_torch.utils.build import BUILD_DIR, build_locked, hash_of
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("adam.cu", "sampling.cu")
+SOURCES = ("adam.cu", "sampling.cu", "upfirdn2d.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +40,8 @@ SIGNATURES = {
     "mdgan_adam_f32_bf16m": [_c_void_p] * 4 + [_c_int64] + [_c_float] * 7 + [_c_void_p],
     "mdgan_sample_normalize_u8": [_c_void_p] * 3 + [_c_int64, _c_int, _c_int, _c_int64,
                                                     _c_int, _c_int, _c_void_p],
+    "mdgan_upfirdn2d": [_c_void_p, _c_void_p, _c_int, _c_int64] + [_c_int] * 8
+                       + [_c_void_p, _c_int, _c_int, _c_void_p],
 }
 
 _lock = threading.Lock()

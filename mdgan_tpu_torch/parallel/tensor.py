@@ -46,6 +46,7 @@ from mdgan_tpu_torch.models import from_jax
 from mdgan_tpu_torch.models.layers import ConvTransposeBlock
 from mdgan_tpu_torch.models.stylegan2 import EqualDense, ModulatedConv, StyleGAN2Generator, \
     SynthesisBlock
+from mdgan_tpu_torch.models.stylegan2f import StyleGAN2FGenerator
 
 # the port dim of each weight-map kind's flax trailing dim
 _TRAILING = {"conv": 0, "convt": 1, "dense": 0, "const": 0, "vec": 0, "stat": 0}
@@ -87,6 +88,10 @@ def shard_module(module: nn.Module, axis) -> nn.Module:
     leaves, and the layers computing with them.  Tags the module with
     ``tensor_shards`` (name -> dim) and ``tensor_rank`` (index, size), which
     ``models/from_jax.py`` reads to load whole leaves onto the slices."""
+    if axis.size > 1 and isinstance(module, StyleGAN2FGenerator):
+        raise NotImplementedError("StyleGAN2 config-f (StyleGAN2FGenerator, dataset "
+                                  "LSUNChurch256) has no tensor-parallel form: run it with "
+                                  "--num_tensor 1")
     dims = sharded_dims(module, axis.size)
     module.tensor_shards, module.tensor_rank = dims, (axis.index, axis.size)
     if not dims:

@@ -35,13 +35,14 @@ with its seconds:
            blurs a block at b=4), float32 and bfloat16: forward and backward
            against the plain version on the card (float32 TF32 off: rtol
            1e-5 of the largest output; bfloat16: within one rounding of the
-           float32 sum), each call's forward device time against its byte
-           bound (input read once, output written once), against the plain
-           version's and against the one cuDNN call that computes it (a
-           depthwise ``conv2d``, or at up=2 a depthwise stride-2
+           float32 sum), each call's forward and backward device time
+           against its byte bound (input read once, output written once) and
+           the plan each took, the forward against the plain version's and
+           against the one cuDNN call that computes it (a depthwise
+           ``conv2d``, or at up=2 a depthwise stride-2
            ``conv_transpose2d``); then two config-f MD-GAN rounds (N=8, b=4,
            bfloat16) through ``run_rounds``, the kernel's launches counted
-           from them: 600 a round
+           from them: 600 a round, with the plans they took
   golden   the committed JAX-trained generator through ``from_jax``: a
            train-mode forward on the card equals the CPU's (float32, TF32 off)
   round    two narrow MD-GAN rounds (N=2, width 8) on the card against the
@@ -757,9 +758,11 @@ def phase_upfirdn2d():
     """The FIR resampling kernel against its plain version at config-f's
     resampling shapes, forward and backward, in float32 and bfloat16; each
     site's forward device time against the byte bound, the plain version's
-    and cuDNN's one call (``upfirdn2d_library``); then config-f MD-GAN
-    rounds with the kernel's launches counted from them
-    (``upfirdn2d_rounds``)."""
+    and cuDNN's one call (``upfirdn2d_library``), and each site's backward
+    (the gradient's resampling, called as the backward calls it) against
+    its byte bound, with the plan of each; then config-f MD-GAN rounds with
+    the kernel's launches counted from them (``upfirdn2d_rounds``)."""
+    import numpy as np
     import torch
 
     from mdgan_tpu_torch.core.timing import bound_ms, time_ms
@@ -809,18 +812,33 @@ def phase_upfirdn2d():
                                                           pad=pad), 10)
             lib_t = time_ms(lambda: library(xs[next(it) % len(xs)]), 20)
             b_ms, b_by = bound_ms(nbytes, 2 * 16 * y.numel())
+            # the backward's own call: dy (y's shape) back to x's shape
+            gpad = fir.grad_pad(shape[2:], y.shape[2:], up, 1, pad)
+            k_flip = np.ascontiguousarray(k[::-1, ::-1])
+            dys = [torch.randn(y.shape, generator=gen, device=dev).to(dtype)
+                   for _ in range(len(xs))]
+            bwd_t = time_ms(lambda: fir.upfirdn2d(dys[next(it) % len(dys)], k_flip, up=1,
+                                                  down=up, pad=gpad), 20)
+            bwd_ms, _ = bound_ms(nbytes, 2 * 16 * x.numel())
+            plans = {what: fir.plan(math.prod(t.shape[:2]), *t.shape[2:], u, d).name
+                     for what, t, u, d in (("forward", y, up, 1), ("backward", x, 1, up))}
             recs[name] = {"shape": list(shape), "up": up, "pad": list(pad), "bytes": nbytes,
                           "ms": t["ms"], "plain_ms": plain_t["ms"], "library_ms": lib_t["ms"],
                           "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / t["ms"],
+                          "backward_ms": bwd_t["ms"], "backward_bound_ms": bwd_ms,
+                          "backward_share_of_bound": bwd_ms / bwd_t["ms"], "plans": plans,
                           "max_abs_err": errs}
-            del x, y, dx, xr, yr, dxr, xs, library
+            del x, y, dx, xr, yr, dxr, xs, dys, library
         sums = {key: sum(r[key] for r in recs.values())
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms", "backward_ms",
+                            "backward_bound_ms")}
         out[str(dtype).split(".")[-1]] = {
             "calls": recs, "forward_ms": sums["ms"], "plain_ms": sums["plain_ms"],
             "library_ms": sums["library_ms"], "bound_ms": sums["bound_ms"],
             "bound_by": "/".join(sorted({r["bound_by"] for r in recs.values()})),
             "share_of_bound": sums["bound_ms"] / sums["ms"],
+            "backward_ms": sums["backward_ms"], "backward_bound_ms": sums["backward_bound_ms"],
+            "backward_share_of_bound": sums["backward_bound_ms"] / sums["backward_ms"],
             "max_abs_err": max(e for r in recs.values() for e in r["max_abs_err"].values())}
     torch.cuda.empty_cache()
     out["mdgan_rounds"] = upfirdn2d_rounds()
@@ -851,20 +869,22 @@ def upfirdn2d_rounds(rounds: int = 2, n: int = 8, b: int = 4, blocks: int = 6):
     rng = np.random.default_rng(7)
     data = eng.shard_data(rng.integers(0, 256, (n, 16, 256, 256, 3), dtype=np.uint8))
     fir.upfirdn2d.launches = 0
+    fir.upfirdn2d.plans = {}
     t = time.perf_counter()
     m = eng.run_rounds(st, data, ShardSampler(n, 16, b, seed=7), rounds)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
-    launched = fir.upfirdn2d.launches
+    launched, plans = fir.upfirdn2d.launches, dict(fir.upfirdn2d.plans)
     want = rounds * (2 * 2 * blocks + n * 6 * 2 * blocks)
     losses = {k: m[k].float().cpu().tolist() for k in ("mean_d_loss", "g_feedback_loss")}
     require(all(math.isfinite(v) for vals in losses.values() for row in vals for v in row),
             f"config-f rounds: losses {losses}")
     require(launched == want, f"config-f rounds: {launched} upfirdn2d launches, want {want}")
+    require(sum(plans.values()) == launched, f"config-f rounds: plans {plans}")
     del eng, st, data, m
     torch.cuda.empty_cache()
     return {"rounds": rounds, "num_workers": n, "batch_size": b, "launches": launched,
-            "seconds": seconds, **losses}
+            "plans": plans, "seconds": seconds, **losses}
 
 
 def upfirdn2d_entry(rec: dict) -> dict:

@@ -5,6 +5,9 @@ kernels in interpret mode (as ``tests/test_ops.py`` does) and the port side
 its wrappers on CPU tensors, which run the kernels' plain versions.
 """
 
+import ctypes
+import re
+
 import numpy as np
 import pytest
 
@@ -189,3 +192,24 @@ def test_sampling_baselines_build_apart_from_the_kernels(tmp_path):
     assert [c for c in cmd if c.endswith(".cu")] == [
         str(_build.CSRC / "baselines" / "sampling_baselines.cu")]
     assert "#include <torch" not in (_build.CSRC / bench_sampling.BASELINES[0]).read_text()
+
+
+def _c_params(name):
+    """The parameter types of csrc's ``extern "C"`` function ``name``."""
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src.read_text())
+        if m:
+            return [" ".join(p.split()[:-1]) for p in m.group(1).split(",")]
+    raise AssertionError(f"no extern C function {name}")
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_ctypes_signature_matches_the_c_entry_point(name):
+    """Each ctypes signature declares the C function's parameters one for
+    one: a missing or extra one passes garbage in the last ones (the stream),
+    which no CPU run executes."""
+    ctype = {"int": ctypes.c_int, "int64_t": ctypes.c_int64, "float": ctypes.c_float,
+             "cudaStream_t": ctypes.c_void_p}
+    want = [ctypes.c_void_p if t.endswith("*") else ctype[t.replace("const ", "")]
+            for t in _c_params(name)]
+    assert _build.SIGNATURES[name] == want

@@ -12,6 +12,12 @@ Held here:
     output) for up=2 and down=2 at every pad the model uses, with an
     asymmetric filter (so a flip shows), and ``gradcheck`` of its backward
     (the same operation, filter flipped, up and down swapped);
+  * the CUDA kernel's plan (``upfirdn2d.plan``) at every config-f
+    resampling of ``chip_smoke.upfirdn2d_sites`` and its gradient's call,
+    and at odd sizes and cropping pads, by a model of the kernel's blocks
+    and patches: every output computed once, every input row and column
+    the taps reach staged, shared memory within the plan's limit, whole
+    planes packed where outputs are 32 wide or less;
   * the generator's forward with given noise, the discriminator's forward,
     and their parameter and input gradients, against the reference;
   * one MD-GAN round at N=2 with given latents and noise, and one standalone
@@ -60,6 +66,7 @@ from mdgan_tpu_torch.ops.losses import normalize_uint8
 from mdgan_tpu_torch.ops import upfirdn2d as upfirdn2d_ops
 from mdgan_tpu_torch.ops.upfirdn2d import setup_kernel, upfirdn2d, upfirdn2d_plain
 from mdgan_tpu_torch.parallel import tensor as tensor_lib
+from chip_smoke import upfirdn2d_sites
 from perfbench import inputs
 from perfbench.configs import stylegan2f as ref
 from perfbench.reference import rounds
@@ -164,6 +171,171 @@ def test_upfirdn2d_kernel_refuses_other_resamplings(taps, up, down):
     with pytest.raises(ValueError, match="CUDA kernel"):
         upfirdn2d_ops._launch(x, np.ones(taps, np.float32), up, down, (0, 0, 0, 0))
     assert upfirdn2d(x, np.ones(taps, np.float32), up=up, down=down).shape[0] == 1
+
+
+def test_upfirdn2d_wrapper_passes_the_plan(monkeypatch):
+    """``_launch`` hands the C entry point exactly the arguments its ctypes
+    signature declares, the call's plan among them, and counts the launch
+    under the plan's name (the library and the CUDA calls stubbed: no card
+    runs here)."""
+    calls = []
+
+    class Lib:
+        def mdgan_upfirdn2d(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(upfirdn2d_ops._build, "lib", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("Stream", (), {"cuda_stream": 7})())
+    monkeypatch.setattr(upfirdn2d_ops.upfirdn2d, "plans", {})
+    monkeypatch.setattr(upfirdn2d_ops.upfirdn2d, "launches", 0)
+    x = torch.zeros(2, 3, 9, 9)
+    y = upfirdn2d_ops._launch(x, setup_kernel((1, 3, 3, 1)), 1, 1, (1, 1, 1, 1))
+    (args,) = calls
+    assert y.shape == (2, 3, 8, 8)
+    assert len(args) == len(upfirdn2d_ops._build.SIGNATURES["mdgan_upfirdn2d"])
+    pl = upfirdn2d_ops.plan(6, 8, 8, 1, 1)
+    assert args[15:21] == (1, pl.tile_h, pl.planes_per_block, pl.threads, pl.pitch,
+                           pl.stage_rows)
+    assert args[-1] == 7 and upfirdn2d_ops.upfirdn2d.plans == {"planes": 1}
+    assert upfirdn2d_ops.upfirdn2d.launches == 1
+
+
+def _fir_calls():
+    """(id, planes, (in_h, in_w), up, down, pad) of every config-f resampling
+    and its gradient's call, then odd sizes and cropping pads."""
+    calls = []
+    for name, (n, c, h, w), up, pad in upfirdn2d_sites():
+        out = (upfirdn2d_ops.out_size(h, up, 1, pad[2], pad[3], 4),
+               upfirdn2d_ops.out_size(w, up, 1, pad[0], pad[1], 4))
+        calls.append((name, n * c, (h, w), up, 1, pad))
+        calls.append((name + "_grad", n * c, out, 1, up,
+                      upfirdn2d_ops.grad_pad((h, w), out, up, 1, pad)))
+    for planes, hw, up, down, pad in [
+            (145, (8, 8), 1, 1, (1, 1, 1, 1)), (7, (5, 7), 1, 1, (-1, 2, 1, -1)),
+            (6, (13, 40), 2, 1, (3, -1, -2, 3)), (6, (13, 40), 1, 2, (0, 3, 1, 2)),
+            (3, (1, 1), 1, 1, (2, 1, 2, 1)), (2, (3, 33), 2, 1, (-1, 2, 0, -2)),
+            (5, (70, 9), 1, 2, (2, 2, 2, 2)), (1, (31, 300), 1, 1, (1, 1, -1, 2))]:
+        calls.append((f"odd{planes}x{hw[0]}x{hw[1]}_{up}{down}", planes, hw, up, down, pad))
+    return calls
+
+
+FIR_CALLS = _fir_calls()
+
+
+def _fir_plan(planes, hw, up, down, pad):
+    out = (upfirdn2d_ops.out_size(hw[0], up, down, pad[2], pad[3], 4),
+           upfirdn2d_ops.out_size(hw[1], up, down, pad[0], pad[1], 4))
+    return upfirdn2d_ops.plan(planes, *out, up, down), out
+
+
+def _fir_blocks(pl, planes, out_h):
+    """(first plane, planes, first output row) of each block, as the kernel
+    takes them from blockIdx; for the rows plan the first two planes'."""
+    if pl.name == "planes":
+        assert pl.grid == -(-planes // pl.planes_per_block)
+        pb = pl.planes_per_block
+        return [(b * pb, min(pb, planes - b * pb), 0) for b in range(pl.grid)]
+    tiles = -(-out_h // pl.tile_h)
+    assert pl.grid == planes * tiles and pl.planes_per_block == 1
+    return [(b // tiles, 1, (b % tiles) * pl.tile_h) for b in range(min(pl.grid, 2 * tiles))]
+
+
+@pytest.mark.parametrize("call", FIR_CALLS, ids=[c[0] for c in FIR_CALLS])
+def test_upfirdn2d_plan_covers_each_output_once(call):
+    """Each block's threads walk its patches (plane, row group, column
+    group) of RY x XB outputs; over the blocks each output is written once."""
+    _, planes, hw, up, down, pad = call
+    pl, (oh, ow) = _fir_plan(planes, hw, up, down, pad)
+    xb, ry = upfirdn2d_ops.XB, upfirdn2d_ops.RY
+    col_groups, row_groups = -(-ow // xb), pl.tile_h // ry
+    assert pl.tile_h % ry == 0 and 32 <= pl.threads <= upfirdn2d_ops.THREADS
+    assert pl.threads % 32 == 0
+    blocks = _fir_blocks(pl, planes, oh)
+    seen = min(planes, blocks[-1][0] + blocks[-1][1])
+    count = np.zeros((seen, oh, ow), np.int32)
+    patch_y, patch_x = np.meshgrid(np.arange(ry), np.arange(xb), indexing="ij")
+    for plane0, nplanes, ty0 in blocks:
+        i = np.arange(nplanes * row_groups * col_groups)
+        p, rg, cg = i // (row_groups * col_groups), i // col_groups % row_groups, i % col_groups
+        oy = ty0 + rg[:, None, None] * ry + patch_y
+        ox = cg[:, None, None] * xb + patch_x
+        p = np.broadcast_to(plane0 + p[:, None, None], oy.shape)
+        keep = (oy < oh) & (ox < ow)
+        np.add.at(count, (p[keep], oy[keep], ox[keep]), 1)
+    assert count.min() == 1 and count.max() == 1
+
+
+@pytest.mark.parametrize("call", FIR_CALLS, ids=[c[0] for c in FIR_CALLS])
+def test_upfirdn2d_plan_stages_every_row_the_taps_reach(call):
+    """A block stages rows [ty0 * down, ty0 * down + stage_rows) and columns
+    [0, pitch) of the upsampled, padded plane: every input pixel a tap of
+    its outputs reaches lies there, and so does every staged float4 its
+    patches read."""
+    _, planes, (h, w), up, down, pad = call
+    pl, (oh, ow) = _fir_plan(planes, (h, w), up, down, pad)
+    xb, ry = upfirdn2d_ops.XB, upfirdn2d_ops.RY
+    col_groups = -(-ow // xb)
+    taps = np.arange(4)
+    for _, _, ty0 in _fir_blocks(pl, planes, oh):
+        oy = np.arange(ty0, min(ty0 + pl.tile_h, oh))
+        uy = (oy[:, None] * down + taps).ravel()
+        iy = uy - pad[2]
+        reached = uy[(iy >= 0) & (iy % up == 0) & (iy // up < h)] - ty0 * down
+        assert reached.min() >= 0 and reached.max() < pl.stage_rows
+    ux = (np.arange(ow)[:, None] * down + taps).ravel()
+    ix = ux - pad[0]
+    assert ux[(ix >= 0) & (ix % up == 0) & (ix // up < w)].max() < pl.pitch
+    # the last row group and column group read inside the staged tile
+    assert (pl.tile_h - 1) * down + 4 <= pl.stage_rows
+    assert (col_groups - 1) * xb * down + -(-((xb - 1) * down + 4) // 4) * 4 <= pl.pitch
+    assert pl.pitch % 4 == 0
+
+
+@pytest.mark.parametrize("call", FIR_CALLS, ids=[c[0] for c in FIR_CALLS])
+def test_upfirdn2d_plan_fits_its_shared_memory(call):
+    _, planes, hw, up, down, pad = call
+    pl, _ = _fir_plan(planes, hw, up, down, pad)
+    assert pl.smem == 4 * pl.planes_per_block * pl.stage_rows * pl.pitch
+    assert pl.smem <= pl.smem_limit <= upfirdn2d_ops.ROWS_SMEM
+
+
+@pytest.mark.parametrize("call", FIR_CALLS, ids=[c[0] for c in FIR_CALLS])
+def test_upfirdn2d_plan_packs_small_planes(call):
+    """Outputs 32 wide or less take the packed plan, wider ones full rows.
+    A packed block takes as many planes as fit: one more would pass
+    ``THREADS`` patches or the memory limit, or leave the call under
+    ``MIN_BLOCKS`` blocks.  A rows block takes the tallest tile that fits
+    the same way, then evens the tiles of a plane: one tile fewer a plane
+    would not fit, and no tile is a row group or more taller than the rows
+    its plane has left for it.  Threads cover the patches, and the staged
+    rows in one batch where ``THREADS`` allow."""
+    _, planes, hw, up, down, pad = call
+    pl, (oh, ow) = _fir_plan(planes, hw, up, down, pad)
+    ops = upfirdn2d_ops
+    assert pl.name == ("planes" if ow <= ops.SMALL_W else "rows")
+    col_groups, row_groups = -(-ow // ops.XB), pl.tile_h // ops.RY
+    staged = pl.planes_per_block * pl.stage_rows * pl.pitch // up
+    assert pl.threads >= min(ops.THREADS, pl.planes_per_block * col_groups * row_groups)
+    assert pl.threads >= min(ops.THREADS, -(-staged // ops.STAGE_FLOATS))
+
+    def fits(pb, rg):
+        rows = (rg * ops.RY - 1) * down + 4
+        blocks = -(-planes // pb) if pl.name == "planes" else planes * -(-oh // (rg * ops.RY))
+        return (pb * col_groups * rg <= ops.THREADS
+                and 4 * pb * rows * pl.pitch <= ops.BLOCK_SMEM and blocks >= ops.MIN_BLOCKS)
+
+    if pl.name == "planes":
+        assert pl.tile_h >= oh and pl.planes_per_block <= planes
+        assert not fits(pl.planes_per_block + 1, row_groups)
+    else:
+        plane_groups = -(-oh // ops.RY)
+        tiles = -(-plane_groups // row_groups)
+        assert tiles * row_groups - plane_groups < tiles
+        if tiles > 1:
+            assert not fits(1, -(-plane_groups // (tiles - 1)))
 
 
 def _weights(net: str, seed: int):

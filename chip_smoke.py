@@ -191,6 +191,9 @@ import tempfile
 import time
 from pathlib import Path
 
+from mdgan_tpu_torch.core.timing import card_line
+from mdgan_tpu_torch.ops import _build
+
 ADAM_BYTES_PER_ELEM = 28    # read p, g, mu, nu; write p, mu, nu (float32)
 ADAM_OPS_PER_ELEM = 13      # see csrc/adam.cu
 # the bfloat16-moment kernel: read p, g (4 B each) and mu, nu (2 B each), write
@@ -224,29 +227,6 @@ def emit(record: dict) -> None:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
-
-
-def nvidia_smi() -> str:
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    require(proc.returncode == 0, f"nvidia-smi failed: {proc.stderr.strip()}")
-    return proc.stdout.strip().splitlines()[0]
-
-
-def kernel_counts() -> dict:
-    """The launch counters since the last reset (``kernels_reset``)."""
-    from mdgan_tpu_torch.ops import adam, sampling
-
-    return {"adam": adam.adam_update.launches, "adam_bf16m": adam.adam_update.launches_bf16m,
-            "sampling": sampling.sample_normalize.launches}
-
-
-def kernels_reset() -> None:
-    from mdgan_tpu_torch.ops import adam, sampling
-
-    adam.adam_update.launches = adam.adam_update.launches_bf16m = 0
-    sampling.sample_normalize.launches = 0
 
 
 def adam_arena(gen, n, rec, name, bf16_moments=False):
@@ -716,23 +696,6 @@ def no_tf32():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def upfirdn2d_sites(b_g: int = 8, b_d: int = 4):
-    """Every resampling call of one config-f generator forward (b_g images)
-    and one discriminator forward (b_d): (name, input shape, up, pad)."""
-    from mdgan_tpu_torch.models import stylegan2f
-
-    def ch(res):
-        return stylegan2f.nf(int(math.log2(res)) - 1)
-
-    sites = []
-    for res in (8, 16, 32, 64, 128, 256):
-        sites.append((f"g_up{res}", (b_g, ch(res), res + 1, res + 1), 1, (1, 1, 1, 1)))
-        sites.append((f"g_rgb{res}", (b_g, 3, res // 2, res // 2), 2, (2, 1, 2, 1)))
-        sites.append((f"d_blur{res}", (b_d, ch(res), res, res), 1, (2, 2, 2, 2)))
-        sites.append((f"d_skip{res}", (b_d, ch(res), res, res), 1, (1, 1, 1, 1)))
-    return sites
-
-
 def upfirdn2d_library(x, k, up: int, pad):
     """The one cuDNN call that computes a config-f resampling site: with
     up=1 and equal pads a depthwise ``conv2d`` with the flipped filter, with
@@ -775,15 +738,16 @@ def phase_upfirdn2d():
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         recs = {}
-        for name, shape, up, pad in upfirdn2d_sites():
+        for name, shape, up, pad in stylegan2f.upfirdn2d_sites():
             k = stylegan2f._FIR_UP if name.startswith("g_") else stylegan2f._FIR
             x = torch.randn(shape, generator=gen, device=dev).to(dtype).requires_grad_(True)
-            before = fir.upfirdn2d.launches
+            before = _build.launches["mdgan_upfirdn2d"]
             y = fir.upfirdn2d(x, k, up=up, pad=pad)
             dy = torch.randn(y.shape, generator=gen, device=dev).to(dtype)
             (dx,) = torch.autograd.grad(y, x, dy)
-            require(fir.upfirdn2d.launches - before == 2,
-                    f"upfirdn2d {name}: {fir.upfirdn2d.launches - before} launches for a "
+            launched = _build.launches["mdgan_upfirdn2d"] - before
+            require(launched == 2,
+                    f"upfirdn2d {name}: {launched} launches for a "
                     "forward and its backward, want 2")
             xr = x.detach().float().requires_grad_(True)
             yr = fir.upfirdn2d_plain(xr, k, up=up, pad=pad)
@@ -861,20 +825,20 @@ def upfirdn2d_rounds(rounds: int = 2, n: int = 8, b: int = 4, blocks: int = 6):
     from mdgan_tpu_torch.core.registry import get as get_spec
     from mdgan_tpu_torch.data.sampler import ShardSampler
     from mdgan_tpu_torch.engine.mdgan import MDGANEngine
-    from mdgan_tpu_torch.ops import upfirdn2d as fir
 
     eng = MDGANEngine(get_spec("LSUNChurch256"), TrainConfig(batch_size=b,
                                                              compute_dtype="bfloat16"), n)
     st = eng.init_state(7)
     rng = np.random.default_rng(7)
     data = eng.shard_data(rng.integers(0, 256, (n, 16, 256, 256, 3), dtype=np.uint8))
-    fir.upfirdn2d.launches = 0
-    fir.upfirdn2d.plans = {}
+    _build.launches.clear()
     t = time.perf_counter()
     m = eng.run_rounds(st, data, ShardSampler(n, 16, b, seed=7), rounds)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
-    launched, plans = fir.upfirdn2d.launches, dict(fir.upfirdn2d.plans)
+    launched = _build.launches["mdgan_upfirdn2d"]
+    plans = {key.split("/")[1]: count for key, count in _build.launches.items()
+             if key.startswith("mdgan_upfirdn2d/")}
     want = rounds * (2 * 2 * blocks + n * 6 * 2 * blocks)
     losses = {k: m[k].float().cpu().tolist() for k in ("mean_d_loss", "g_feedback_loss")}
     require(all(math.isfinite(v) for vals in losses.values() for row in vals for v in row),
@@ -1002,7 +966,7 @@ def phase_mdgan(keep: Path, rounds: int = 20):
     base = ["--mode", "mdgan", "--dataset", "CIFAR10", "--num_workers", "8",
             "--batch_size", "10", "--epochs", str(rounds), "--swap_interval", "10",
             "--log_interval", "10"]
-    kernels_reset()
+    _build.launches.clear()
     runs, prev = {}, (0, 0, 0)
     for name, extra, chunk in (
             ("float32", ["--compute_dtype", "float32"], 100),
@@ -1012,7 +976,7 @@ def phase_mdgan(keep: Path, rounds: int = 20):
         summary, logs, rows = run_main(base + extra + ["--chunk_size", str(chunk)],
                                        server_csv=True,
                                        keep_logs=keep if name == "float32" else None)
-        now = tuple(kernel_counts().values())
+        now = tuple(_build.reported().values())
         launched = tuple(a - b for a, b in zip(now, prev))
         prev = now
         chunks = cli_chunks(rounds, 10, 10, chunk)
@@ -1054,9 +1018,9 @@ def phase_standalone(rounds: int = 30, local_epochs: int = 1):
     argv = ["--mode", "standalone", "--dataset", "CIFAR10", "--batch_size", "10",
             "--epochs", str(rounds), "--log_interval", "10", "--local_epochs",
             str(local_epochs), "--compute_dtype", "float32"]
-    kernels_reset()
+    _build.launches.clear()
     summary, logs = run_main(argv)
-    launched = kernel_counts()
+    launched = _build.reported()
     chunks = cli_chunks(rounds, 0, 10, 100, 3000)
     require(summary["all_finite"], "standalone: non-finite metrics")
     require(launched == {"adam": 2 * local_epochs * rounds, "adam_bf16m": 0,
@@ -1096,11 +1060,11 @@ def phase_families(rounds: int = 10):
             argv = ["--mode", mode, "--dataset", dataset, "--num_workers", "8",
                     "--batch_size", "10", "--epochs", str(rounds), "--swap_interval", "5",
                     "--log_interval", "5", "--max_examples", "8000", "--compute_dtype", dtype]
-            kernels_reset()
+            _build.launches.clear()
             t = time.perf_counter()
             summary, logs = run_main(argv)
             seconds = time.perf_counter() - t
-            launched = kernel_counts()
+            launched = _build.reported()
             n = 8 if mode == "mdgan" else 1
             chunks = cli_chunks(rounds, 5 if mode == "mdgan" else 0, 5, 100, 3000)
             want = {"adam": 2 * rounds, "adam_bf16m": 0,
@@ -1142,9 +1106,9 @@ def _capped_gather_check(rounds: int = 40):
     rng = np.random.default_rng(5)
     shards = eng.shard_data(rng.integers(0, 256, (8, 200, *shape), dtype=np.uint8))
     idx = eng.put_indices(rng.integers(0, 200, (rounds, 8, 10)), 200)
-    kernels_reset()
+    _build.launches.clear()
     got = torch.stack(list(eng._real_batches(shards, idx)))
-    launched = kernel_counts()["sampling"]
+    launched = _build.reported()["sampling"]
     want = sampling.sample_normalize_plain(shards, idx)
     require(launched == sampling_launches([rounds], 8, shape),
             f"capped gather: {launched} launches, want {sampling_launches([rounds], 8, shape)}")
@@ -1219,7 +1183,7 @@ def phase_trainer(keep: Path):
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         for mode in ("mdgan", "standalone"):
-            kernels_reset()
+            _build.launches.clear()
             torch.use_deterministic_algorithms(True)
             try:
                 full, summary = run(root / mode / "full", mode, 8)
@@ -1227,7 +1191,7 @@ def phase_trainer(keep: Path):
                 resumed, _ = run(root / mode / "split", mode, 8, "--resume")
             finally:
                 torch.use_deterministic_algorithms(False)
-            launched = {k: kernel_counts()[k] for k in ("adam", "sampling")}
+            launched = {k: _build.reported()[k] for k in ("adam", "sampling")}
             require(min(launched.values()) > 0, f"trainer {mode}: launches {launched}")
             differ = [k for k, t in arenas(full.state).items()
                       if not torch.equal(t, arenas(resumed.state)[k])]
@@ -1500,9 +1464,9 @@ def _tools_cli(argv, shape, swap_interval, log_interval, rounds, n=8):
     """The CLI on the card: finite losses, 2 Adam launches a round, the
     sampling launches of its chunks; returns (summary, launches)."""
 
-    kernels_reset()
+    _build.launches.clear()
     summary, _ = run_main(argv)
-    launched = kernel_counts()
+    launched = _build.reported()
     chunks = cli_chunks(rounds, swap_interval, log_interval, 100)
     want = {"adam": 2 * rounds, "adam_bf16m": 0,
             "sampling": sampling_launches(chunks, n, shape)}
@@ -1766,9 +1730,9 @@ def phase_profile(rounds: int = 3):
                 eng = MDGANEngine(spec, TrainConfig(compute_dtype=dtype), 8)
                 shards = eng.shard_data(shards_np)
                 sampler = ShardSampler(8, shards_np.shape[1], 10, seed=0)
-            kernels_reset()
+            _build.launches.clear()
             rec[name] = profile_rounds(eng, shards, sampler, *counts)
-            total, launched = sum(counts), kernel_counts()
+            total, launched = sum(counts), _build.reported()
             rec[name]["adam_launches_per_round"] = launched["adam"] / total
             rec[name]["sampling_launches"] = launched["sampling"]
             del shards
@@ -1794,12 +1758,12 @@ def rank_program(argv) -> int:
     out, argv = Path(argv[0]), argv[1:]
     distributed.maybe_initialize()
     host_ms = _round_host_ms()
-    kernels_reset()
+    _build.launches.clear()
     torch.use_deterministic_algorithms(True)
     rc = train.main(argv)
     out.mkdir(parents=True, exist_ok=True)
     (out / f"rank_{os.environ['RANK']}.json").write_text(json.dumps(
-        {"launches": kernel_counts(), "host_ms_per_round": host_ms}))
+        {"launches": _build.reported(), "host_ms_per_round": host_ms}))
     return rc
 
 
@@ -2148,9 +2112,9 @@ def axes_program(argv) -> int:
         rec["host_ms_per_round"] = (time.perf_counter() - t0) / AXES_TIMED_ROUNDS * 1e3
         del eng, st, shards
         torch.cuda.empty_cache()
-    kernels_reset()
+    _build.launches.clear()
     rc = train.main(argv + ["--num_replicas", str(r), "--num_tensor", str(t)])
-    rec["launches"] = kernel_counts()
+    rec["launches"] = _build.reported()
     (out / f"rank_{rank}.json").write_text(json.dumps(rec))
     return rc
 
@@ -2296,9 +2260,9 @@ def phase_bench(chunk: int = BENCH_CHUNK, timed: int = BENCH_TIMED,
     bench.CONFIGS["_smoke"] = (dataset, n, b, chunk, timed, max_ex)
     try:
         for dtype in ("bfloat16", "float32"):
-            kernels_reset()
+            _build.launches.clear()
             row = bench.bench_mdgan("_smoke", compute_dtype=dtype)
-            launches[f"bench_{dtype}"] = kernel_counts()
+            launches[f"bench_{dtype}"] = _build.reported()
             print(json.dumps(row), flush=True)
             check_bench_line(row, f"bench {dtype}")
             # a warm chunk, the timed chunks, the round FlopCounterMode counts
@@ -2312,9 +2276,9 @@ def phase_bench(chunk: int = BENCH_CHUNK, timed: int = BENCH_TIMED,
             lines[dtype] = row
     finally:
         bench.CONFIGS.pop("_smoke", None)
-    kernels_reset()
+    _build.launches.clear()
     row = bench.bench_sustained(rounds=sustained, warm_rounds=warm)
-    launches["bench_sustained"] = kernel_counts()
+    launches["bench_sustained"] = _build.reported()
     print(json.dumps(row), flush=True)
     check_bench_line(row, "bench sustained")
     # each run one chunk (no log, swap or checkpoint event before its last
@@ -2337,10 +2301,10 @@ def phase_parts(iters: int = 10, profiled: int = 3):
     cost)."""
     from mdgan_tpu_torch.cli import profile_parts
 
-    kernels_reset()
+    _build.launches.clear()
     rec = profile_parts.profile(8, 10, iters, profiled=profiled)
     rec["profiled_calls"] = profiled
-    launched = kernel_counts()
+    launched = _build.reported()
     calls = 3 + iters + profiled
     # G fwd+VJP+Adam and the D region one Adam launch a call, the round two;
     # the D region and the round one sampling launch a call
@@ -2468,7 +2432,7 @@ def phase_record():
         root = Path(tmp)
         saved_tmp, tempfile.tempdir = tempfile.tempdir, str(root)  # the runs' checkpoints
         try:
-            kernels_reset()
+            _build.launches.clear()
             for name, step in (
                     ("golden", lambda: recorder.record_golden_mdgan(root, RECORD_CUT)),
                     ("standalone", lambda: recorder.record_golden_standalone(root, RECORD_CUT)),
@@ -2481,7 +2445,7 @@ def phase_record():
                 with contextlib.redirect_stdout(io.StringIO()):
                     step()
                 steps[name] = time.perf_counter() - t
-            launches = kernel_counts()
+            launches = _build.reported()
             with contextlib.redirect_stdout(io.StringIO()):
                 recorder.prune_weights(root)
                 recorder.trim_inventory(root)
@@ -2532,8 +2496,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke test "
               "needs one CUDA GPU", file=sys.stderr)
         return 2
-    import mdgan_tpu_torch  # noqa: F401  (fails when run outside the repository)
-    from mdgan_tpu_torch.ops import _build
 
     if sys.argv[1:2] == ["--rank-program"]:  # a rank of the distributed phase
         return rank_program(sys.argv[2:])
@@ -2544,7 +2506,8 @@ def main() -> int:
     # set before the first cuBLAS call of the process
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t = time.perf_counter()
-    smi = nvidia_smi()
+    smi = card_line()
+    require(smi is not None, "nvidia-smi failed")
     emit({"phase": "env", "seconds": time.perf_counter() - t, "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

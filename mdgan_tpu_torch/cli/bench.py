@@ -74,12 +74,12 @@ def card(device) -> Dict:
     ``nvidia-smi``'s "name, limit W" line; None on the CPU)."""
     import torch
 
-    from mdgan_tpu_torch.cli.bench_sampling import card as smi_line
+    from mdgan_tpu_torch.core.timing import card_line
 
     if device.type != "cuda":
         return {"device": "cpu", "power_limit_w": None}
-    line = smi_line()
-    if "," not in line:
+    line = card_line()
+    if line is None or "," not in line:
         raise RuntimeError(f"nvidia-smi gave no power limit: {line!r}")
     return {"device": torch.cuda.get_device_name(device),
             "power_limit_w": float(line.rsplit(",", 1)[1].split()[0])}

@@ -18,9 +18,11 @@ Usage:
 (``utils/checkpoint.py``; the latest step unless ``--step``), of either
 trainer mode.  The forward runs with train-mode BatchNorm, as JAX's
 ``_sample`` (``generate.py:33-37``) and the trainers' samples do, and leaves
-the generator's stored statistics as they were.  Latents come from the
-port's EVAL lane seeded by ``--seed`` (JAX's threefry draws cannot be
-reproduced; :func:`sample_images` takes injected latents instead).
+the generator's stored statistics as they were.  Latents, then a config-f
+generator's noise inputs, come from the port's EVAL lane seeded by
+``--seed``, so a seed gives the same images on every run (JAX's threefry
+draws cannot be reproduced; :func:`sample_images` takes injected latents
+instead).
 ``--device`` defaults to ``cuda``.
 """
 
@@ -38,6 +40,7 @@ import torch
 from mdgan_tpu_torch.core import prng
 from mdgan_tpu_torch.core.config import resolve_device
 from mdgan_tpu_torch.core.registry import DatasetSpec, get as get_spec
+from mdgan_tpu_torch.engine.mdgan import generate_kept, sample_generator
 from mdgan_tpu_torch.models import from_jax
 from mdgan_tpu_torch.obs import images as images_lib
 from mdgan_tpu_torch.ops import losses
@@ -45,9 +48,13 @@ from mdgan_tpu_torch.utils import checkpoint as ckpt_lib
 
 
 def latents(spec: DatasetSpec, num: int, seed: int, device) -> torch.Tensor:
-    """``num`` latents from lane (EVAL, seed) on ``device``."""
-    gen = prng.generator(seed, prng.EVAL, 0, device=device)
-    return torch.randn(num, spec.z_dim, generator=gen, device=device)
+    """``num`` latents from lane (EVAL, seed) on ``device``: the latents
+    :func:`sample_images` draws for ``seed``."""
+    return torch.randn(num, spec.z_dim, generator=_lane(seed, device), device=device)
+
+
+def _lane(seed: int, device) -> torch.Generator:
+    return prng.generator(seed, prng.EVAL, 0, device=device)
 
 
 def load_generator(spec: DatasetSpec, params: Mapping, stats: Mapping,
@@ -56,25 +63,27 @@ def load_generator(spec: DatasetSpec, params: Mapping, stats: Mapping,
     return from_jax.load_into(spec.make_generator(), params, stats).to(device).train()
 
 
-@torch.no_grad()
+def _images(x: torch.Tensor) -> np.ndarray:
+    return losses.denormalize_to_unit(x).permute(0, 2, 3, 1).float().cpu().numpy()
+
+
 def sample(g: torch.nn.Module, z: torch.Tensor) -> np.ndarray:
-    """G(z) in train-mode BN as (num, H, W, C) float32 images in [0, 1].  G's
-    stored statistics are restored after the forward, as
-    ``EngineBase.generate`` restores them."""
-    saved = [b.clone() for b in g.buffers()]
-    out = g(z)
-    for buf, before in zip(g.buffers(), saved):
-        buf.copy_(before)
-    return losses.denormalize_to_unit(out).permute(0, 2, 3, 1).float().cpu().numpy()
+    """G(z) of a generator that takes no noise, in train-mode BN, as (num,
+    H, W, C) float32 images in [0, 1]; G's stored statistics are left as
+    they were (``engine/mdgan.py`` :func:`generate_kept`)."""
+    return _images(generate_kept(g, [z]))
 
 
 def sample_images(spec: DatasetSpec, params: Mapping, stats: Mapping, num: int, seed: int,
                   device="cuda", z: Optional[torch.Tensor] = None) -> np.ndarray:
-    """``num`` images from the generator with (params, stats); ``z``
-    replaces the seeded latents."""
+    """``num`` images from the generator with (params, stats): its latents
+    and any noise inputs from lane (EVAL, seed) (``engine/mdgan.py``
+    :func:`sample_generator`), or G(``z``) where ``z`` is given."""
     device = resolve_device(device)
     g = load_generator(spec, params, stats, device)
-    return sample(g, latents(spec, num, seed, device) if z is None else z.to(device))
+    if z is not None:
+        return sample(g, z.to(device))
+    return _images(sample_generator(g, num, spec.z_dim, _lane(seed, device)))
 
 
 def load_from_checkpoint(directory: str, step: Optional[int]) -> Tuple[Dict, Dict]:

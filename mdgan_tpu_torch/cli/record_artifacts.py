@@ -65,7 +65,6 @@ import gzip
 import io
 import json
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -107,27 +106,14 @@ def with_overrides(argv: Sequence[str], overrides: Optional[Dict[str, str]]) -> 
     return out
 
 
-def _launches() -> Dict[str, int]:
-    from mdgan_tpu_torch.ops import adam, sampling
-
-    return {"adam": adam.adam_update.launches, "adam_bf16m": adam.adam_update.launches_bf16m,
-            "sampling": sampling.sample_normalize.launches}
-
-
 def card_line(device_name: Optional[str]) -> str:
     """The card's name and power limit as ``nvidia-smi`` gives them, or the
     device the run used where that is no card."""
+    from mdgan_tpu_torch.core import timing
+
     if device_name in (None, "cpu"):
         return str(device_name or "not recorded")
-    try:
-        proc = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60)
-    except OSError:
-        proc = None
-    lines = proc.stdout.strip().splitlines() if proc is not None else []
-    return lines[0] if proc is not None and proc.returncode == 0 and lines else (
-        f"{device_name} (nvidia-smi failed)")
+    return timing.card_line() or f"{device_name} (nvidia-smi failed)"
 
 
 def write_manifest(out: Path, argv: Sequence[str], summary: Dict,
@@ -161,11 +147,12 @@ def run_train(argv, summary_path: Path, overrides: Optional[Dict[str, str]] = No
     ``overrides``), keep the summary JSON of its last stdout line in
     ``summary_path`` and a ``MANIFEST.md`` beside it; returns the summary."""
     from mdgan_tpu_torch.cli import train as train_cli
+    from mdgan_tpu_torch.ops import _build
 
     argv = with_overrides(argv, overrides)
     print(f"== train {' '.join(argv)}", flush=True)
     t0 = time.time()
-    before = _launches()
+    before = _build.reported()
     buf = io.StringIO()
     with redirect_stdout(buf):
         rc = train_cli.main(argv)
@@ -173,7 +160,7 @@ def run_train(argv, summary_path: Path, overrides: Optional[Dict[str, str]] = No
     line = buf.getvalue().strip().splitlines()[-1]
     summary = json.loads(line)  # must be the summary JSON line
     summary_path.write_text(line)
-    launches = {k: v - before[k] for k, v in _launches().items()}
+    launches = {k: v - before[k] for k, v in _build.reported().items()}
     write_manifest(summary_path.parent, argv, summary, launches)
     print(f"== done in {time.time() - t0:.1f}s, launches {launches}: {line[:300]}",
           flush=True)

@@ -1,20 +1,36 @@
 """Device timing of CUDA work with the host's issue hidden, and byte/op bounds.
 
-Used by ``chip_smoke.py`` and ``mdgan_tpu_torch.cli.bench_sampling``.  A
-small kernel finishes on the device long before the host has issued the next
-launch, so CUDA events around a host loop measure the host's issue interval.
+Used by ``chip_smoke.py`` and the port's CLI tools.  A small kernel
+finishes on the device long before the host has issued the next launch, so
+CUDA events around a host loop measure the host's issue interval.
 :func:`time_ms` queues the timed calls behind a device sleep that outlasts
 their issue, so the device runs them back to back and the events see device
-time only.  Nothing here runs at import.
+time only.  :func:`card_line` reads the card's name and power limit, which
+every time kept is written beside.  Nothing here runs at import.
 """
 
 from __future__ import annotations
 
 import functools
+import subprocess
 import time
+from typing import Optional
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+
+
+def card_line() -> Optional[str]:
+    """The card's name and power limit as ``nvidia-smi`` gives them ("NVIDIA
+    H100 80GB HBM3, 700.00 W"), or None where it cannot be read."""
+    try:
+        proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    lines = proc.stdout.strip().splitlines()
+    return lines[0] if proc.returncode == 0 and lines else None
 
 
 def bound_ms(nbytes: float, ops: float):

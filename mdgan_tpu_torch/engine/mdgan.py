@@ -10,7 +10,7 @@ Per round (``MDGANEngine._step``, ``:392-483``, with ``_d_region``,
     on batch ``n % k``.
  3. **Local D training**: each worker takes its real batch (gathered and
     normalized by the sampling kernel, once per chunk of rounds in
-    :meth:`MDGANEngine.run_rounds`) and takes ``local_epochs`` Adam
+    :meth:`EngineBase.run_rounds`) and takes ``local_epochs`` Adam
     steps on ``BCE(D(real), 1) + BCE(D(X_d), 0)`` — two sequential train-mode
     forwards, each with its own batch statistics.  One Adam launch updates
     all N discriminators.
@@ -92,12 +92,12 @@ each launch's output within ``GATHER_CAP_BYTES`` (256 MiB): one launch a
 chunk at CIFAR-10 (98 MB for 100 rounds at N=8, b=10), several at
 128x128x3 (1.57 GB).
 
-**Generator noise.**  A generator that takes per-pixel noise (StyleGAN2
-config-f) declares its inputs' per-sample shapes (``noise_shapes()``).  Each
-round's G forward gets one (k*b, *shape) tensor an input: the round's slice
-of ``run_rounds(..., noise=)``, or drawn from lane (NOISE, step, input); a
-replica keeps its rows, as of z, and the G backward reuses that forward's
-graph.  The other families take no noise, and their rounds draw none.
+**Generator inputs.**  A generator that takes per-pixel noise (StyleGAN2
+config-f) declares its inputs' per-sample shapes (``noise_shapes()``).  A
+round's inputs are :meth:`EngineBase.g_inputs`: z, then one (k*b, *shape)
+tensor a noise input, each given or drawn from its lane; a replica keeps its
+rows.  Images outside the round come from :func:`sample_generator`: z, then
+any noise, from the caller's ``torch.Generator``.
 
 Both engines mark their phases with the same spans (``obs/spans.py``
 :func:`phase`, recorded only under ``torch.profiler``): ``engine.chunk``
@@ -118,6 +118,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from mdgan_tpu_torch.core import distributed, prng
 from mdgan_tpu_torch.core.config import TrainConfig, k_batches, resolve_device
@@ -140,8 +141,9 @@ Masks = Dict[Tuple[int, ...], Sequence[torch.Tensor]]
 
 class EngineBase:
     """What both engines share: the device, the compute dtype, the latent,
-    noise and dropout lanes, the family's init, index upload, the chunk's
-    gather and generator sampling."""
+    noise and dropout lanes, the family's init, index upload, the chunk
+    loop and its gather, the round's generator inputs and sampling outside
+    the round."""
 
     def __init__(self, spec: DatasetSpec, train_cfg: TrainConfig,
                  model_kwargs: Optional[Dict] = None):
@@ -164,6 +166,7 @@ class EngineBase:
         self.device = resolve_device(train_cfg.device)
         self.model_kwargs = dict(model_kwargs or {})
         self._bf16 = train_cfg.compute_dtype == "bfloat16"
+        self._g_batch = train_cfg.batch_size  # samples a round's G forward makes
         self._zgen = torch.Generator(device=self.device)
         self._dropgen = torch.Generator(device=self.device)
         self._noisegen = torch.Generator(device=self.device)
@@ -209,6 +212,10 @@ class EngineBase:
                 reals = sample_normalize(data, idx[s:s + span])
             yield from reals
 
+    def _my_indices(self, idx: np.ndarray) -> np.ndarray:
+        """This process's columns of a chunk's (T, N, b) sampler indices."""
+        return idx
+
     def put_indices(self, idx: np.ndarray, shard_size: int) -> torch.Tensor:
         """Validate sampler indices on the host, then copy them to the device."""
         idx = np.asarray(idx)
@@ -221,68 +228,118 @@ class EngineBase:
             return contextlib.nullcontext()
         return torch.autocast(device_type=self.device.type, dtype=torch.bfloat16)
 
-    def _latents(self, step: int, seed: int, num: int) -> torch.Tensor:
-        """``num`` latents from lane (LATENT, step)."""
-        prng.reseed(self._zgen, seed, prng.LATENT, step)
-        return torch.randn(num, self.spec.z_dim, generator=self._zgen, device=self.device)
+    def latents(self, st) -> torch.Tensor:
+        """This round's latents from lane (LATENT, step), one for each
+        sample of its G forward: k*b in MD-GAN, b standalone."""
+        prng.reseed(self._zgen, st.seed, prng.LATENT, st.step)
+        return torch.randn(self._g_batch, self.spec.z_dim, generator=self._zgen,
+                           device=self.device)
 
-    @staticmethod
-    def noise_shapes(g: NetState) -> Optional[List[tuple]]:
-        """The per-sample shapes of the generator's noise inputs, in order;
-        None where it takes no noise."""
-        shapes = getattr(g.modules[0], "noise_shapes", None)
-        return None if shapes is None else shapes()
-
-    def _noise(self, g: NetState, seed: int, step: int, num: int
-               ) -> Optional[List[torch.Tensor]]:
-        """``num`` samples of each noise input, input i from lane (NOISE,
-        step, i); None where the generator takes no noise."""
-        shapes = self.noise_shapes(g)
-        if shapes is None:
-            return None
-        return [torch.randn(num, *shape, device=self.device,
-                            generator=prng.reseed(self._noisegen, seed, prng.NOISE, step, i))
-                for i, shape in enumerate(shapes)]
-
-    def _check_noise(self, g: NetState, noise, num_rounds: int) -> None:
-        """``run_rounds``' noise: one (T, samples, *shape) tensor an input."""
+    def g_inputs(self, st, z: Optional[torch.Tensor] = None,
+                 noise: Optional[Sequence[torch.Tensor]] = None) -> List[torch.Tensor]:
+        """This round's generator inputs, ``[z, *noise]``: z from
+        :meth:`latents`, and, where the generator declares
+        ``noise_shapes()``, noise input i from lane (NOISE, step, i); the
+        inputs given are used as given."""
+        z = self.latents(st) if z is None else z
+        declared = getattr(st.g.modules[0], "noise_shapes", None)
+        if declared is None:
+            if noise is not None:
+                raise ValueError(f"{self.spec.name}'s generator takes no noise")
+            return [z]
+        shapes = declared()
         if noise is None:
-            return
-        shapes = self.noise_shapes(g)
-        if shapes is None:
-            raise ValueError(f"{self.spec.name}'s generator takes no noise")
-        if len(noise) != len(shapes) or any(n.shape[0] != num_rounds or
-                                            tuple(n.shape[2:]) != tuple(s)
+            return [z] + [torch.randn(self._g_batch, *shape, device=self.device,
+                                      generator=prng.reseed(self._noisegen, st.seed, prng.NOISE,
+                                                            st.step, i))
+                          for i, shape in enumerate(shapes)]
+        if len(noise) != len(shapes) or any(tuple(n.shape[1:]) != tuple(s)
                                             for n, s in zip(noise, shapes)):
-            raise ValueError(f"noise must be {len(shapes)} tensors of (T={num_rounds}, "
-                             f"samples, *shape) with shapes {shapes}, got "
-                             f"{[tuple(n.shape) for n in noise]}")
+            raise ValueError(f"noise must be {len(shapes)} tensors of (samples, *shape) with "
+                             f"shapes {shapes}, got {[tuple(n.shape) for n in noise]}")
+        return [z, *noise]
 
-    @staticmethod
-    def _g_forward(g, z: torch.Tensor, noise: Optional[List[torch.Tensor]]) -> torch.Tensor:
-        return g(z) if noise is None else g(z, noise)
-
-    @torch.no_grad()
     def generate(self, g: NetState, z: torch.Tensor,
-                 noise: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
-        """G(z) with train-mode BN, as ``sample_fn`` (``mdgan.py:596-608``);
-        G's running stats are left as they were.  A generator that takes
-        noise draws its own where ``noise`` is None."""
-        saved = g.stats.clone()
+                 noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """G(z) (with its noise inputs, where it takes noise) in train-mode
+        BN and the compute dtype, as ``sample_fn`` (``mdgan.py:596-608``);
+        G's running stats are left as they were."""
         with self._autocast():
-            out = self._g_forward(g.modules[0], z, noise)
-        g.stats.copy_(saved)
-        return out
+            return generate_kept(g.modules[0], [z, *(noise or ())], g.stats)
 
-    def sample(self, g: NetState, num: int, seed: int) -> torch.Tensor:
-        """``num`` images from lane (EVAL, seed): the latents, then any
-        noise."""
-        gen = prng.generator(seed, prng.EVAL, 0, device=self.device)
-        z = torch.randn(num, self.spec.z_dim, generator=gen, device=self.device)
-        shapes = self.noise_shapes(g)
-        noise = None if shapes is None else [
-            torch.randn(num, *shape, generator=gen, device=self.device) for shape in shapes]
-        return self.generate(g, z, noise)
+    def sample(self, g: NetState, num: int, seed: int = 0,
+               gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``num`` images in the compute dtype (:func:`sample_generator`),
+        drawn from ``gen``, or from lane (EVAL, seed)."""
+        if gen is None:
+            gen = prng.generator(seed, prng.EVAL, 0, device=self.device)
+        with self._autocast():
+            return sample_generator(g.modules[0], num, self.spec.z_dim, gen, g.stats)
+
+    def run_rounds(self, st, data: torch.Tensor, sampler, num_rounds: int,
+                   z: Optional[torch.Tensor] = None,
+                   noise: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """One chunk of ``num_rounds`` rounds with indices from ``sampler``
+        (the analogue of ``chunk_fn``): metrics stacked on a leading round
+        axis, except ``x_eval``, which is the last round's.
+
+        The chunk's real batches come from :meth:`_real_batches`: one
+        sampling launch a chunk unless the chunk's output passes
+        ``GATHER_CAP_BYTES``.  z: optional (T, samples, z_dim) latents;
+        noise (a generator that takes noise): optional, one (T, samples,
+        *shape) tensor a noise input, in the generator's order; round t
+        gets slice t of each (:meth:`g_inputs`).
+        """
+        if z is not None and z.shape[0] != num_rounds:
+            raise ValueError(f"z holds {z.shape[0]} rounds of latents, want {num_rounds}")
+        if noise is not None and any(n.shape[0] != num_rounds for n in noise):
+            raise ValueError(f"noise must hold {num_rounds} rounds, got "
+                             f"{[tuple(n.shape) for n in noise]}")
+        with phase("engine.chunk", st.step):
+            idx = sampler.next_chunk(num_rounds)
+            reals = self._real_batches(data, self.put_indices(self._my_indices(idx),
+                                                              data.shape[1]))
+            out: List[Dict[str, torch.Tensor]] = [
+                self._round(st, real, None if z is None else z[t],
+                            noise=None if noise is None else [x[t] for x in noise])
+                for t, real in enumerate(reals)]
+            with phase("engine.metrics"):
+                stacked = {key: torch.stack([m[key] for m in out])
+                           for key in out[0] if key != "x_eval"}
+                stacked["x_eval"] = out[-1]["x_eval"]
+                return self._chunk_metrics(stacked, idx)
+
+
+def generate_kept(g: nn.Module, inputs: Sequence[torch.Tensor],
+                  stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """G on ``inputs`` (``[z, *noise]``) in train-mode BN without a graph,
+    G's statistics left as they were: the arena ``stats`` that holds them,
+    kept in one copy, or each of G's buffers."""
+    kept = list(g.buffers()) if stats is None else [stats]
+    with torch.no_grad():
+        saved = [t.clone() for t in kept]
+        out = run_generator(g, inputs)
+        for t, before in zip(kept, saved):
+            t.copy_(before)
+    return out
+
+
+def run_generator(g: nn.Module, inputs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """G on its inputs: ``g(z)``, or ``g(z, noise)`` where it takes noise."""
+    z, *noise = inputs
+    return g(z, noise) if noise else g(z)
+
+
+def sample_generator(g: nn.Module, num: int, z_dim: int, gen: torch.Generator,
+                     stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``num`` images of ``g`` outside the round: (num, z_dim) latents, then,
+    where ``g`` declares ``noise_shapes()``, each noise input, all drawn
+    from ``gen`` in that order; G runs as :func:`generate_kept` runs it."""
+    z = torch.randn(num, z_dim, generator=gen, device=gen.device)
+    declared = getattr(g, "noise_shapes", None)
+    noise = [] if declared is None else [torch.randn(num, *shape, generator=gen, device=gen.device)
+                                         for shape in declared()]
+    return generate_kept(g, [z, *noise], stats)
 
 
 class MDGANEngine(EngineBase):
@@ -316,6 +373,7 @@ class MDGANEngine(EngineBase):
         self._split = self._replica.active
         self._total = b if self._split else None  # losses: a mean, or a part of one
         self.k = k_batches(num_workers)
+        self._g_batch = self.k * b
         w = torch.arange(self.layout.lo, self.layout.hi, device=self.device)
         self._g_assign = w % self.k          # X_g batch per worker (server.py:238)
         self._d_assign = (w + 1) % self.k    # X_d batch per worker (server.py:239)
@@ -350,10 +408,6 @@ class MDGANEngine(EngineBase):
     # ------------------------------------------------------------------
     # one training round
     # ------------------------------------------------------------------
-
-    def latents(self, st: MDGANState) -> torch.Tensor:
-        """This round's k*b latents from lane (LATENT, step)."""
-        return self._latents(st.step, st.seed, self.k * self.cfg.batch_size)
 
     def _my_rows(self, x: torch.Tensor) -> torch.Tensor:
         """This replica's rows of every batch of a (k*b, ...) tensor, as
@@ -452,19 +506,13 @@ class MDGANEngine(EngineBase):
         under a replica split), the feedbacks' squared sum ``fb_sq`` and its
         rows of ``x_eval``; :meth:`_whole` makes them the run's."""
         with phase("engine.round", st.step):
-            if z is None:
-                z = self.latents(st)
-            z = self._my_rows(z)
-            if noise is None:
-                noise = self._noise(st.g, st.seed, st.step, self.k * self.cfg.batch_size)
-            if noise is not None:
-                noise = [self._my_rows(x) for x in noise]
+            inputs = [self._my_rows(x) for x in self.g_inputs(st, z, noise)]
             if fb_mask is None and self.cfg.straggler_rate > 0.0:
                 fb_mask = self.straggler_mask(st)
 
             # (1) generate k*b fakes in one forward; the graph waits for (5)
             with phase("engine.generate"), self._autocast():
-                x_all = self._g_forward(st.g.modules[0], z, noise)
+                x_all = run_generator(st.g.modules[0], inputs)
             x_k = x_all.detach().view(self.k, -1, *x_all.shape[1:])
             # (2)-(4) local D steps and feedback, then (5) the G step
             mean_d_loss, g_losses, feedback = self._d_region(st, real, x_k, masks)
@@ -642,34 +690,14 @@ class MDGANEngine(EngineBase):
             distributed.all_reduce_(buf, self.layout.worker_axis)
         return buf[:-1].view(cot.shape).to(cot.dtype), buf[-1].to(fb_sq.dtype)
 
-    def run_rounds(self, st: MDGANState, data: torch.Tensor, sampler, num_rounds: int,
-                   z: Optional[torch.Tensor] = None,
-                   noise: Optional[List[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-        """One chunk of ``num_rounds`` rounds with indices from ``sampler``
-        (the analogue of ``chunk_fn``): metrics stacked on a leading round
-        axis, except ``x_eval``, which is the last round's.
+    def _my_indices(self, idx: np.ndarray) -> np.ndarray:
+        """This rank's columns of a chunk's (T, N, b) sampler indices: its
+        workers' rows of its replica."""
+        return idx[:, self.layout.lo:self.layout.hi, self._rows]
 
-        The chunk's real batches come from :meth:`_real_batches`: one
-        sampling launch a chunk unless the chunk's output passes
-        ``GATHER_CAP_BYTES``.  z: optional (T, k*b, z_dim) latents; noise
-        (a generator that takes noise): optional, one (T, k*b, *shape)
-        tensor a noise input, in the generator's order; round t gets slice t.
-        """
-        if z is not None and z.shape[0] != num_rounds:
-            raise ValueError(f"z holds {z.shape[0]} rounds of latents, want {num_rounds}")
-        self._check_noise(st.g, noise, num_rounds)
-        with phase("engine.chunk", st.step):
-            idx = sampler.next_chunk(num_rounds)[:, self.layout.lo:self.layout.hi, self._rows]
-            idx = self.put_indices(idx, data.shape[1])
-            out: List[Dict[str, torch.Tensor]] = [
-                self._round(st, real, None if z is None else z[t],
-                            noise=None if noise is None else [x[t] for x in noise])
-                for t, real in enumerate(self._real_batches(data, idx))]
-            with phase("engine.metrics"):
-                stacked = {key: torch.stack([m[key] for m in out])
-                           for key in out[0] if key != "x_eval"}
-                stacked["x_eval"] = out[-1]["x_eval"]
-                return self._whole(stacked)
+    def _chunk_metrics(self, stacked: Dict[str, torch.Tensor], idx: np.ndarray
+                       ) -> Dict[str, torch.Tensor]:
+        return self._whole(stacked)
 
     # ------------------------------------------------------------------
     # discriminator swap

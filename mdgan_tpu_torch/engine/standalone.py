@@ -15,12 +15,13 @@ Port of ``mdgan_tpu/engine/standalone.py:33-163``.  Per round (``_step``,
     too (``:89-90``), and G's statistics come from its forward.
 
 D and G are each a :class:`NetState` with n=1: one Adam launch per net per
-local epoch.  A chunk's real batches are gathered as the MD-GAN engine
-gathers them (N=1): one sampling launch a chunk unless its output passes
-``GATHER_CAP_BYTES``.  A discriminator with dropout keys its masks as the
-JAX round splits its dropout key (``:98-99``): local epoch i's D step by
-(step, i, 0, half), its G step's D forward by (step, i, 1).  A generator
-that takes noise gets the round's b samples of each noise input (given, or
+local epoch.  A chunk runs through the MD-GAN engine's loop
+(``EngineBase.run_rounds``), its real batches gathered as there (N=1): one
+sampling launch a chunk unless its output passes ``GATHER_CAP_BYTES``.  A
+discriminator with dropout keys its masks as the JAX round splits its
+dropout key (``:98-99``): local epoch i's D step by (step, i, 0, half), its
+G step's D forward by (step, i, 1).  A generator that takes noise gets the
+round's b samples of each noise input (``EngineBase.g_inputs``: given, or
 drawn from lane (NOISE, step, input)) in both of its forwards.
 """
 
@@ -31,7 +32,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from mdgan_tpu_torch.engine.mdgan import EngineBase, Masks
+from mdgan_tpu_torch.engine.mdgan import EngineBase, Masks, run_generator
 from mdgan_tpu_torch.engine.state import StandaloneState
 from mdgan_tpu_torch.obs.spans import phase
 from mdgan_tpu_torch.ops import losses
@@ -53,10 +54,6 @@ class StandaloneEngine(EngineBase):
             raise ValueError(f"data must be (S, H, W, C) uint8, got {data.shape} {data.dtype}")
         return torch.from_numpy(np.ascontiguousarray(data)[None]).to(self.device)
 
-    def latents(self, st: StandaloneState) -> torch.Tensor:
-        """This round's b latents from lane (LATENT, step) (``standalone.py:68-72``)."""
-        return self._latents(st.step, st.seed, self.cfg.batch_size)
-
     def step(self, st: StandaloneState, data: torch.Tensor, idx: torch.Tensor,
              z: Optional[torch.Tensor] = None,
              masks: Optional[Masks] = None) -> Dict[str, torch.Tensor]:
@@ -65,19 +62,18 @@ class StandaloneEngine(EngineBase):
         masks: optional dropout keep masks by key path, (i, 0, half) and
         (i, 1) (tests inject JAX's)."""
         with phase("engine.sample"):
-            real = sample_normalize(data, idx)[0]
+            real = sample_normalize(data, idx)
         return self._round(st, real, z, masks)
 
     def _round(self, st: StandaloneState, real: torch.Tensor, z: Optional[torch.Tensor],
                masks: Optional[Masks] = None,
                noise: Optional[List[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-        """The round's body on its real batch ``real``, (b, C, H, W) float32."""
-        cfg = self.cfg
+        """The round's body on its one shard's real batch ``real``, (1, b, C,
+        H, W) float32, with the round's latents ``z`` and noise (each drawn
+        from its lane when None, :meth:`g_inputs`)."""
+        cfg, real = self.cfg, real[0]
         with phase("engine.round", st.step):
-            if z is None:
-                z = self.latents(st)
-            if noise is None:
-                noise = self._noise(st.g, st.seed, st.step, cfg.batch_size)
+            inputs = self.g_inputs(st, z, noise)
             g_net, d_net = st.g.modules[0], st.d.modules[0]
             g_params = list(g_net.parameters())
 
@@ -86,7 +82,7 @@ class StandaloneEngine(EngineBase):
 
             # (1) the round's fake batch; this forward's G statistics are dropped
             with phase("engine.generate"):
-                fake0 = self.generate(st.g, z, noise)
+                fake0 = self.generate(st.g, inputs[0], inputs[1:])
 
             d_sum = torch.zeros((), device=self.device)
             g_sum = torch.zeros((), device=self.device)
@@ -103,7 +99,7 @@ class StandaloneEngine(EngineBase):
                 with phase("engine.g_update"):
                     st.g.zero_grad()
                     with self._autocast():
-                        g_loss = losses.g_loss(d_fwd(self._g_forward(g_net, z, noise), i, 1))
+                        g_loss = losses.g_loss(d_fwd(run_generator(g_net, inputs), i, 1))
                     g_loss.backward(inputs=g_params)
                     st.g.adam_step(cfg.generator_opt)
                 d_sum += d_loss.detach()
@@ -113,29 +109,8 @@ class StandaloneEngine(EngineBase):
                     "mean_g_loss": g_sum / cfg.local_epochs,
                     "x_eval": fake0}
 
-    def run_rounds(self, st: StandaloneState, data: torch.Tensor, sampler, num_rounds: int,
-                   z: Optional[torch.Tensor] = None,
-                   noise: Optional[List[torch.Tensor]] = None) -> Dict:
-        """One chunk of ``num_rounds`` rounds with indices from ``sampler``
-        (a ``ShardSampler`` over one shard), the analogue of ``chunk_fn``:
-        ``mean_d_loss`` and ``mean_g_loss`` (T,), ``x_eval`` the last
-        round's fake batch, and ``idx`` the chunk's host indices (T, 1, b).
-        The chunk's real batches come from :meth:`_real_batches`.
-        z: optional (T, b, z_dim) latents; noise (a generator that takes
-        noise): optional, one (T, b, *shape) tensor a noise input."""
-        if z is not None and z.shape[0] != num_rounds:
-            raise ValueError(f"z holds {z.shape[0]} rounds of latents, want {num_rounds}")
-        self._check_noise(st.g, noise, num_rounds)
-        with phase("engine.chunk", st.step):
-            idx = sampler.next_chunk(num_rounds)
-            reals = self._real_batches(data, self.put_indices(idx, data.shape[1]))
-            out: List[Dict[str, torch.Tensor]] = [
-                self._round(st, real[0], None if z is None else z[t],
-                            noise=None if noise is None else [x[t] for x in noise])
-                for t, real in enumerate(reals)]
-            with phase("engine.metrics"):
-                stacked = {key: torch.stack([m[key] for m in out])
-                           for key in ("mean_d_loss", "mean_g_loss")}
-        stacked["x_eval"] = out[-1]["x_eval"]
-        stacked["idx"] = idx
-        return stacked
+    def _chunk_metrics(self, stacked: Dict[str, torch.Tensor], idx: np.ndarray) -> Dict:
+        """A chunk's metrics (:meth:`run_rounds`): ``mean_d_loss`` and
+        ``mean_g_loss`` (T,), ``x_eval`` the last round's fake batch, and
+        ``idx`` the chunk's host indices (T, 1, b)."""
+        return {**stacked, "idx": idx}

@@ -100,7 +100,7 @@ def _checkpoint_due(tc, e: int) -> bool:
 def _standard_protocol_eval(engine, g, tracker, full_data, tc, epoch: int):
     """Shared standard-protocol FID/IS (both trainers, ``train_loop.py:73-104``):
     ``eval_n_samples`` fakes from the post-round generator ``g`` in batches of
-    256, latents from lane (EVAL, epoch), against ``eval_n_samples`` reals
+    256, latents (and noise) from lane (EVAL, epoch), against ``eval_n_samples`` reals
     drawn once with ``default_rng(1)``; IS over 10 splits.  Returns
     ``(tracker, result)``; the tracker is built on first use."""
     from mdgan_tpu_torch.metrics import fid as fid_lib
@@ -112,12 +112,8 @@ def _standard_protocol_eval(engine, g, tracker, full_data, tc, epoch: int):
         tracker = fid_lib.FIDTracker(full_data[idx].astype(np.float32) / 255.0,
                                      device=engine.device)
     gen = prng.generator(tc.seed, prng.EVAL, epoch, device=engine.device)
-    fakes = []
-    for i in range(0, n, 256):
-        z = torch.randn(min(256, n - i), engine.spec.z_dim, generator=gen,
-                        device=engine.device)
-        fakes.append(_to_unit_nhwc(engine.generate(g, z)))
-    fakes01 = np.concatenate(fakes)
+    fakes01 = np.concatenate([_to_unit_nhwc(engine.sample(g, min(256, n - i), gen=gen))
+                              for i in range(0, n, 256)])
     fid_std = tracker.score(fakes01)
     is_std, is_std_dev = tracker.inception_score(fakes01, splits=10)
     log.info("standard eval @ %d (n=%d): fid=%.2f is=%.3f±%.3f",

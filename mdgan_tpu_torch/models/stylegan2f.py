@@ -30,11 +30,14 @@ Church).
 The blur and the FIR upsampling are ``ops/upfirdn2d.py`` (its CUDA kernel on
 the card); the transposed and strided convs stay with cuDNN.  The noise
 inputs are the generator's :meth:`StyleGAN2FGenerator.noise_shapes`, in
-forward order; the engines hand them in (``noise=``), and a forward given
-none draws them (NVlabs' ``randomize_noise``).  Under bfloat16 autocast the
-style path stays float32, as in ``models/stylegan2.py``.  With the batch
-split over replicas the minibatch statistic is the whole batch's.  There is
-no tensor-parallel form (``parallel/tensor.py`` refuses one).
+forward order, and every forward is handed them: a round's from lane NOISE
+(``engine/mdgan.py`` ``g_inputs``), a sample's from the sampler's generator
+(``sample_generator``), as NVlabs' ``randomize_noise`` draws them afresh.
+Under bfloat16 autocast the style path stays float32, as in
+``models/stylegan2.py``.  With the batch split over replicas the minibatch
+statistic is the whole batch's.  There is no tensor-parallel form
+(``parallel/tensor.py`` refuses one).  :func:`upfirdn2d_sites` lists the
+resampling calls of one forward of each network.
 
 Departures from NVlabs' training, which the MD-GAN round replaces: no lazy
 R1 or path-length regularization, no style mixing, no generator EMA, no
@@ -44,7 +47,7 @@ truncation.  Weights init with :func:`stylegan2f_init_`.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -149,15 +152,11 @@ class StyleGAN2FGenerator(nn.Module):
         4x4, two at each higher resolution."""
         return [(1, 4, 4)] + [(1, r, r) for r in self.resolutions[1:] for _ in range(2)]
 
-    def forward(self, z: torch.Tensor,
-                noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, noise: Sequence[torch.Tensor]) -> torch.Tensor:
         """z (b, z_dim) -> (b, C, H, W) float32; ``noise``: one (b, 1, r, r)
-        tensor a noise input (:meth:`noise_shapes`), drawn here when None."""
-        shapes = self.noise_shapes()
-        if noise is None:
-            noise = [torch.randn(z.shape[0], *s, device=z.device) for s in shapes]
-        if len(noise) != len(shapes):
-            raise ValueError(f"{len(noise)} noise inputs, want {len(shapes)}")
+        tensor a noise input (:meth:`noise_shapes`)."""
+        if len(noise) != len(self.noise_shapes()):
+            raise ValueError(f"{len(noise)} noise inputs, want {len(self.noise_shapes())}")
         style = self.mapping(z)
         x = self.const[None].expand(z.shape[0], -1, -1, -1)
         x = self.b4(x, style, noise[0])
@@ -168,6 +167,22 @@ class StyleGAN2FGenerator(nn.Module):
             t = getattr(self, f"trgb{res}")(x, style)
             rgb = upfirdn2d(rgb, _FIR_UP, up=2, pad=(2, 1, 2, 1)).to(t.dtype) + t
         return rgb.float()
+
+
+def upfirdn2d_sites(b_g: int = 8, b_d: int = 4):
+    """Every resampling call of one config-f generator forward (b_g images)
+    and one discriminator forward (b_d): (name, input shape, up, pad)."""
+
+    def ch(res):
+        return nf(int(math.log2(res)) - 1)
+
+    sites = []
+    for res in (8, 16, 32, 64, 128, 256):
+        sites.append((f"g_up{res}", (b_g, ch(res), res + 1, res + 1), 1, (1, 1, 1, 1)))
+        sites.append((f"g_rgb{res}", (b_g, 3, res // 2, res // 2), 2, (2, 1, 2, 1)))
+        sites.append((f"d_blur{res}", (b_d, ch(res), res, res), 1, (2, 2, 2, 2)))
+        sites.append((f"d_skip{res}", (b_d, ch(res), res, res), 1, (1, 1, 1, 1)))
+    return sites
 
 
 class EqualConv2d(nn.Module):

@@ -15,15 +15,20 @@ beside it as ``.log``.  Builds take a file lock, so the ranks of a
 ``torch.distributed`` run starting on a cold ``build/`` run one ``nvcc``
 (``utils/build.py``, shared with the host library of ``data/native``).
 Nothing is built or loaded until a wrapper first sees a CUDA tensor.
+
+:func:`launch` is the one place that calls a C entry point: it holds the
+call to the entry's ``SIGNATURES`` row, raises on a CUDA error and counts
+the launch in ``launches``.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 import threading
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from mdgan_tpu_torch.utils.build import BUILD_DIR, build_locked, hash_of
 
@@ -43,6 +48,13 @@ SIGNATURES = {
     "mdgan_upfirdn2d": [_c_void_p, _c_void_p, _c_int, _c_int64] + [_c_int] * 8
                        + [_c_void_p, _c_int, _c_int] + [_c_int] * 6 + [_c_void_p],
 }
+
+# kernel launches since the last ``clear()``, by entry point; the FIR's also
+# by plan, as "mdgan_upfirdn2d/<plan>"
+launches: collections.Counter = collections.Counter()
+# the Adam and sampling entry points under the names reports give their counts
+REPORT_NAMES = {"adam": "mdgan_adam_f32", "adam_bf16m": "mdgan_adam_f32_bf16m",
+                "sampling": "mdgan_sample_normalize_u8"}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -73,23 +85,22 @@ def find_nvcc() -> Path:
         "CUDA kernels are built with: " + " ".join(command(Path("nvcc"), library_path())))
 
 
-def source_hash(sources=SOURCES) -> str:
-    return hash_of(NVCC_FLAGS, [CSRC / name for name in sources])
+def source_hash() -> str:
+    return hash_of(NVCC_FLAGS, [CSRC / name for name in SOURCES])
 
 
-def library_path(stem: str = "mdgan_kernels", sources=SOURCES) -> Path:
-    return BUILD_DIR / f"lib{stem}_{source_hash(sources)}.so"
+def library_path() -> Path:
+    return BUILD_DIR / f"libmdgan_kernels_{source_hash()}.so"
 
 
-def command(nvcc: Path, out: Path, sources=SOURCES) -> List[str]:
-    return [str(nvcc), *NVCC_FLAGS, "-o", str(out), *(str(CSRC / s) for s in sources)]
+def command(nvcc: Path, out: Path) -> List[str]:
+    return [str(nvcc), *NVCC_FLAGS, "-o", str(out), *(str(CSRC / s) for s in SOURCES)]
 
 
-def build(stem: str = "mdgan_kernels", sources=SOURCES) -> Path:
-    """Compile ``sources`` (names under ``csrc/``) into ``lib<stem>_<hash>.so``
-    unless a current one exists; return its path."""
-    return build_locked(library_path(stem, sources),
-                        lambda tmp: command(find_nvcc(), tmp, sources))
+def build() -> Path:
+    """Compile ``SOURCES`` into ``libmdgan_kernels_<hash>.so`` unless a
+    current one exists; return its path."""
+    return build_locked(library_path(), lambda tmp: command(find_nvcc(), tmp))
 
 
 def lib() -> ctypes.CDLL:
@@ -113,3 +124,20 @@ def check(err: int, what: str) -> None:
     if err != 0:
         name = lib().mdgan_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({name}) at launch")
+
+
+def launch(name: str, *args, plan: Optional[str] = None) -> None:
+    """Call entry point ``name`` with ``args``, refusing before the call a
+    count that differs from its ``SIGNATURES`` row; raise on a CUDA error;
+    count the launch under ``name`` (and ``name/plan``)."""
+    if len(args) != len(SIGNATURES[name]):
+        raise TypeError(f"{name} takes {len(SIGNATURES[name])} arguments, got {len(args)}")
+    check(getattr(lib(), name)(*args), name)
+    launches[name] += 1
+    if plan is not None:
+        launches[f"{name}/{plan}"] += 1
+
+
+def reported() -> Dict[str, int]:
+    """The Adam and sampling kernels' ``launches`` under ``REPORT_NAMES``."""
+    return {key: launches[name] for key, name in REPORT_NAMES.items()}

@@ -92,18 +92,7 @@ def adam_update(p, g, mu, nu, lr_c1: float, inv_c2: float,
     if any(t.data_ptr() % 16 for t in (p, g)) or any(
             t.data_ptr() % (8 if bf16m else 16) for t in (mu, nu)):
         raise ValueError("adam_update: arenas must be 16-byte aligned (8 for bf16 moments)")
-    lib = _build.lib()
-    fn = lib.mdgan_adam_f32_bf16m if bf16m else lib.mdgan_adam_f32
-    err = fn(p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(), p.numel(),
-             lr_c1, inv_c2, b1, 1.0 - b1, b2, 1.0 - b2, eps,
-             torch.cuda.current_stream(p.device).cuda_stream)
-    _build.check(err, "adam_update")
-    if bf16m:
-        adam_update.launches_bf16m += 1
-    else:
-        adam_update.launches += 1
-
-
-# kernel launches since the last reset, one count per kernel
-adam_update.launches = 0          # mdgan_adam_f32
-adam_update.launches_bf16m = 0    # mdgan_adam_f32_bf16m
+    _build.launch("mdgan_adam_f32_bf16m" if bf16m else "mdgan_adam_f32",
+                  p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(), p.numel(),
+                  lr_c1, inv_c2, b1, 1.0 - b1, b2, 1.0 - b2, eps,
+                  torch.cuda.current_stream(p.device).cuda_stream)

@@ -53,13 +53,7 @@ def sample_normalize(shards: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                          f"device is cuda:{torch.cuda.current_device()}")
     n, s, h, w, c = shards.shape
     out = torch.empty((*idx.shape, c, h, w), dtype=torch.float32, device=shards.device)
-    lib = _build.lib()
-    err = lib.mdgan_sample_normalize_u8(
-        shards.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(), n, idx.shape[-1], s,
-        h * w, c, torch.cuda.current_stream(shards.device).cuda_stream)
-    _build.check(err, "sample_normalize")
-    sample_normalize.launches += 1
+    _build.launch("mdgan_sample_normalize_u8", shards.data_ptr(), idx.data_ptr(),
+                  out.data_ptr(), idx.numel(), n, idx.shape[-1], s, h * w, c,
+                  torch.cuda.current_stream(shards.device).cuda_stream)
     return out
-
-
-sample_normalize.launches = 0  # kernel launches since the last reset

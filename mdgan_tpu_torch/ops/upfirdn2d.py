@@ -17,7 +17,7 @@ into blocks from its shape (``rows``: full output rows of one plane;
 ``planes``: several whole small planes); a block stages its padded,
 upsampled input rows in shared memory once, and each thread computes a
 patch of ``RY`` x ``XB`` outputs from them.  The launches are counted in
-``upfirdn2d.launches`` and, by plan, in ``upfirdn2d.plans``.  The plain
+``_build.launches``, also by plan (``mdgan_upfirdn2d/rows``).  The plain
 version (``F.pad`` and a depthwise ``F.conv2d``, in float32, or float64 for
 float64 input) runs only for CPU tensors.  The gradient is the same
 operation with the filter flipped, ``up`` and ``down`` swapped and the pads
@@ -176,14 +176,10 @@ def _launch(x: torch.Tensor, k: np.ndarray, up: int, down: int, pad: Pad) -> tor
         return y
     p = plan(n * c, oh, ow, up, down)
     taps = np.ascontiguousarray(k, np.float32)
-    err = _build.lib().mdgan_upfirdn2d(
-        x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16), n * c, h, w, oh, ow, up,
-        down, pad[0], pad[2], taps.ctypes.data, kh, kw, int(p.name == "planes"), p.tile_h,
-        p.planes_per_block, p.threads, p.pitch, p.stage_rows,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "upfirdn2d")
-    upfirdn2d.launches += 1
-    upfirdn2d.plans[p.name] = upfirdn2d.plans.get(p.name, 0) + 1
+    _build.launch("mdgan_upfirdn2d", x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16),
+                  n * c, h, w, oh, ow, up, down, pad[0], pad[2], taps.ctypes.data, kh, kw,
+                  int(p.name == "planes"), p.tile_h, p.planes_per_block, p.threads, p.pitch,
+                  p.stage_rows, torch.cuda.current_stream(x.device).cuda_stream, plan=p.name)
     return y
 
 
@@ -224,6 +220,3 @@ def upfirdn2d(x: torch.Tensor, k: np.ndarray, up: int = 1, down: int = 1,
         raise ValueError(f"upfirdn2d: the filter must be 2-D, got shape {k.shape}")
     return _UpFirDn2d.apply(x, k, int(up), int(down), tuple(int(p) for p in pad))
 
-
-upfirdn2d.launches = 0  # kernel launches since the last reset (forward and backward)
-upfirdn2d.plans = {}    # the same launches by plan name ("rows", "planes")

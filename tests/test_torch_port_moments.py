@@ -50,7 +50,7 @@ from mdgan_tpu_torch.engine.mdgan import MDGANEngine
 from mdgan_tpu_torch.engine.standalone import StandaloneEngine
 from mdgan_tpu_torch.models import from_jax
 from mdgan_tpu_torch.obs import spans
-from mdgan_tpu_torch.ops import adam
+from mdgan_tpu_torch.ops import _build, adam
 from mdgan_tpu_torch.utils import checkpoint as ckpt
 
 LR, B = 2e-4, 4
@@ -112,7 +112,7 @@ def test_adam_update_dispatches_on_the_moments_dtype():
         adam.adam_update(p.clone(), g, moments.to(torch.bfloat16), moments.clone(), *args)
     with pytest.raises(TypeError, match="mu must be"):
         adam.adam_update(p.clone(), g, moments.half(), moments.half(), *args)
-    assert adam.adam_update.launches == adam.adam_update.launches_bf16m == 0
+    assert _build.launches["mdgan_adam_f32"] == _build.launches["mdgan_adam_f32_bf16m"] == 0
 
 
 def test_net_state_holds_bf16_moments_and_rejects_mixed():

@@ -5,6 +5,7 @@ kernels in interpret mode (as ``tests/test_ops.py`` does) and the port side
 its wrappers on CPU tensors, which run the kernels' plain versions.
 """
 
+import collections
 import ctypes
 import re
 
@@ -80,7 +81,7 @@ def test_adam_plain_matches_fused_adam_and_optax(b1, b2):
                                        err_msg=f"step {t}")
         np.testing.assert_allclose(mu.numpy(), flat(o_ref[0].mu).numpy(), rtol=1e-6, atol=1e-12)
         np.testing.assert_allclose(nu.numpy(), flat(o_ref[0].nu).numpy(), rtol=1e-6, atol=1e-14)
-    assert adam.adam_update.launches == 0  # the CPU path launches no kernel
+    assert _build.launches["mdgan_adam_f32"] == 0  # the CPU path launches no kernel
 
 
 def test_sampling_plain_matches_pallas_bit_equal():
@@ -92,7 +93,7 @@ def test_sampling_plain_matches_pallas_bit_equal():
     got = sampling.sample_normalize(torch.from_numpy(data), torch.from_numpy(idx))
     assert got.shape == (3, 5, 3, 32, 32) and got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), want)
-    assert sampling.sample_normalize.launches == 0
+    assert _build.launches["mdgan_sample_normalize_u8"] == 0
 
 
 @pytest.mark.parametrize("t,shape", [(4, (32, 32, 3)), (3, (8, 8, 2))], ids=["cifar", "row128"])
@@ -111,7 +112,7 @@ def test_sampling_chunk_plain_matches_stacked_pallas_bit_equal(t, shape):
     assert got.shape == (t, 3, 5, c, h, w) and got.dtype == torch.float32
     np.testing.assert_array_equal(plain.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert sampling.sample_normalize.launches == 0
+    assert _build.launches["mdgan_sample_normalize_u8"] == 0
 
 
 def _arena(n=64):
@@ -181,17 +182,29 @@ def test_library_name_tracks_sources(monkeypatch, tmp_path):
     assert _build.library_path() != before
 
 
-def test_sampling_baselines_build_apart_from_the_kernels(tmp_path):
-    from mdgan_tpu_torch.cli import bench_sampling
+def test_launch_refuses_a_count_off_the_signature(monkeypatch):
+    """``_build.launch`` holds every call to its entry's ``SIGNATURES`` row
+    before it reaches the library (a stub here: no card runs), and counts
+    only the launches that ran, by entry point and plan."""
+    calls = []
 
-    main = _build.library_path()
-    base = _build.library_path("mdgan_baselines", bench_sampling.BASELINES)
-    assert base.parent == main.parent and base != main
-    assert base.name.startswith("libmdgan_baselines_")
-    cmd = _build.command(tmp_path / "nvcc", base, bench_sampling.BASELINES)
-    assert [c for c in cmd if c.endswith(".cu")] == [
-        str(_build.CSRC / "baselines" / "sampling_baselines.cu")]
-    assert "#include <torch" not in (_build.CSRC / bench_sampling.BASELINES[0]).read_text()
+    class Lib:
+        def mdgan_sample_normalize_u8(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(_build, "lib", lambda: Lib())
+    monkeypatch.setattr(_build, "launches", collections.Counter())
+    want = len(_build.SIGNATURES["mdgan_sample_normalize_u8"])
+    for n in (want - 1, want + 1):
+        with pytest.raises(TypeError, match=f"takes {want} arguments, got {n}"):
+            _build.launch("mdgan_sample_normalize_u8", *range(n))
+    assert calls == [] and not _build.launches
+    _build.launch("mdgan_sample_normalize_u8", *range(want), plan="rows")
+    assert calls == [tuple(range(want))]
+    assert _build.launches == {"mdgan_sample_normalize_u8": 1,
+                               "mdgan_sample_normalize_u8/rows": 1}
+    assert _build.reported() == {"adam": 0, "adam_bf16m": 0, "sampling": 1}
 
 
 def _c_params(name):

@@ -13,7 +13,7 @@ Held here:
     asymmetric filter (so a flip shows), and ``gradcheck`` of its backward
     (the same operation, filter flipped, up and down swapped);
   * the CUDA kernel's plan (``upfirdn2d.plan``) at every config-f
-    resampling of ``chip_smoke.upfirdn2d_sites`` and its gradient's call,
+    resampling of ``stylegan2f.upfirdn2d_sites`` and its gradient's call,
     and at odd sizes and cropping pads, by a model of the kernel's blocks
     and patches: every output computed once, every input row and column
     the taps reach staged, shared memory within the plan's limit, whole
@@ -25,8 +25,10 @@ Held here:
     gradients (Adam's ``mu`` after one step at beta_1 = 0) and the parameter
     deltas;
   * the noise lane: the same noise gives the same round; ``noise=None``
-    draws from lane (NOISE, step, input), reproducibly; a family without
-    noise refuses it;
+    draws from lane (NOISE, step, input), reproducibly, in both engines; a
+    family without noise refuses it, and so does a chunk given noise of
+    another round count; ``cli.generate`` samples config-f reproducibly for
+    a seed, as ``EngineBase.sample`` does;
   * the parameter counts at config-f widths against the benchmark
     configuration's ``g_params``/``d_params``; the CLI in both modes; the
     weight map's round trip; the tensor-parallel refusal; the dataset.
@@ -44,6 +46,7 @@ carries the first gradients' rounding into it.  A step is held as the
 parameters after it, so two float32 ulps of each parameter come on top.
 """
 
+import collections
 import dataclasses
 import functools
 import json
@@ -62,11 +65,11 @@ from mdgan_tpu_torch.engine.mdgan import MDGANEngine
 from mdgan_tpu_torch.engine.standalone import StandaloneEngine
 from mdgan_tpu_torch.engine.state import NetState
 from mdgan_tpu_torch.models import from_jax
+from mdgan_tpu_torch.models.stylegan2f import upfirdn2d_sites
 from mdgan_tpu_torch.ops.losses import normalize_uint8
 from mdgan_tpu_torch.ops import upfirdn2d as upfirdn2d_ops
 from mdgan_tpu_torch.ops.upfirdn2d import setup_kernel, upfirdn2d, upfirdn2d_plain
 from mdgan_tpu_torch.parallel import tensor as tensor_lib
-from chip_smoke import upfirdn2d_sites
 from perfbench import inputs
 from perfbench.configs import stylegan2f as ref
 from perfbench.reference import rounds
@@ -189,8 +192,7 @@ def test_upfirdn2d_wrapper_passes_the_plan(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("Stream", (), {"cuda_stream": 7})())
-    monkeypatch.setattr(upfirdn2d_ops.upfirdn2d, "plans", {})
-    monkeypatch.setattr(upfirdn2d_ops.upfirdn2d, "launches", 0)
+    monkeypatch.setattr(upfirdn2d_ops._build, "launches", collections.Counter())
     x = torch.zeros(2, 3, 9, 9)
     y = upfirdn2d_ops._launch(x, setup_kernel((1, 3, 3, 1)), 1, 1, (1, 1, 1, 1))
     (args,) = calls
@@ -199,8 +201,8 @@ def test_upfirdn2d_wrapper_passes_the_plan(monkeypatch):
     pl = upfirdn2d_ops.plan(6, 8, 8, 1, 1)
     assert args[15:21] == (1, pl.tile_h, pl.planes_per_block, pl.threads, pl.pitch,
                            pl.stage_rows)
-    assert args[-1] == 7 and upfirdn2d_ops.upfirdn2d.plans == {"planes": 1}
-    assert upfirdn2d_ops.upfirdn2d.launches == 1
+    assert args[-1] == 7
+    assert upfirdn2d_ops._build.launches == {"mdgan_upfirdn2d": 1, "mdgan_upfirdn2d/planes": 1}
 
 
 def _fir_calls():
@@ -552,6 +554,49 @@ def test_noise_refused_where_not_taken():
     with pytest.raises(ValueError, match="noise must be"):
         cf.run_rounds(st, cf.shard_data(_shards(2)), ShardSampler(2, 6, 2), 1,
                       noise=[torch.zeros(1, 4, 1, 4, 4)])
+
+
+def test_standalone_noise_lane_and_round_counts():
+    """The one chunk loop hands the standalone round its slice of given
+    noise, and the round draws the same noise from lane (NOISE, step,
+    input); noise of another round count is refused before any round."""
+    eng = StandaloneEngine(SPEC, _train_cfg(), model_kwargs=WIDTHS)
+    data = eng.put_data(_shards(1)[0])
+
+    def run(noise=None):
+        st = eng.init_state(1)
+        return eng.run_rounds(st, data, ShardSampler(1, 6, 2, seed=1), 2, noise=noise), st
+
+    drawn, _ = run()
+    lane = [torch.stack([torch.randn(2, *s, generator=prng.reseed(torch.Generator(), 1,
+                                                                   prng.NOISE, t, i))
+                         for t in range(2)]) for i, s in enumerate(ref.noise_shapes(CFG))]
+    given, _ = run(lane)
+    for key in ("mean_d_loss", "mean_g_loss", "x_eval"):
+        assert torch.equal(drawn[key], given[key]), key
+    with pytest.raises(ValueError, match="noise must hold 2 rounds"):
+        run([x[:1] for x in lane])
+
+
+def test_cli_samples_config_f_reproducibly():
+    """``cli.generate``'s sampling path draws config-f's noise from the
+    seed's lane, after the latents: one seed gives the same images twice,
+    another seed others, and they equal ``EngineBase.sample``'s in float32
+    (both are ``sample_generator``)."""
+    from mdgan_tpu_torch.cli import generate
+
+    eng = MDGANEngine(SPEC, _train_cfg(), 2, model_kwargs=WIDTHS)
+    st = eng.init_state(1)
+    _load(st.g.modules[0], _weights("g", 5))  # noise strengths that matter
+    params, stats = from_jax.export_net(st.g)
+    spec = dataclasses.replace(SPEC, make_generator=functools.partial(
+        SPEC.make_generator, **{k: WIDTHS[k] for k in SPEC.g_widths}))
+    imgs = generate.sample_images(spec, params, stats, 3, 5, "cpu")
+    np.testing.assert_array_equal(imgs, generate.sample_images(spec, params, stats, 3, 5, "cpu"))
+    assert not np.array_equal(imgs, generate.sample_images(spec, params, stats, 3, 6, "cpu"))
+    want = eng.sample(st.g, 3, 5)
+    np.testing.assert_array_equal(imgs, generate.losses.denormalize_to_unit(want).permute(
+        0, 2, 3, 1).numpy())
 
 
 def test_weight_map_round_trip():

@@ -1,11 +1,11 @@
 """The FIR resampling kernel (``csrc/upfirdn2d.cu``) on a CUDA card against
 its plain version (``upfirdn2d_plain``), at every resampling of StyleGAN2
-config-f (``chip_smoke.upfirdn2d_sites``), forward and backward, in float32
+config-f (``stylegan2f.upfirdn2d_sites``), forward and backward, in float32
 (within 1e-5 of the largest output, TF32 off) and bfloat16 (within one
 rounding of the float32 sum); and at cases the sites do not reach: a plane
 count that is not a multiple of the packed plan's planes a block, an input
 that starts mid-pair, odd sizes with cropping pads.  Each call is one launch,
-counted under the plan ``upfirdn2d.plan`` names.
+counted in ``_build.launches`` under the plan ``upfirdn2d.plan`` names.
 
 Without a card every test skips.  This file imports no JAX, so on the card
 it runs without the repository's ``conftest.py`` (which does):
@@ -13,19 +13,21 @@ it runs without the repository's ``conftest.py`` (which does):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_upfirdn2d_cuda.py
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import upfirdn2d_sites
 from mdgan_tpu_torch.models import stylegan2f
+from mdgan_tpu_torch.ops import _build
 from mdgan_tpu_torch.ops import upfirdn2d as fir
 
 pytestmark = pytest.mark.card
 
 ASYM = np.array([[1.0, 2.0, 0.5, -1.0], [0.0, 3.0, 1.0, 2.0],
                  [-2.0, 1.0, 4.0, 0.5], [1.5, -0.5, 2.0, 1.0]], np.float32)
-SITES = [(name, shape, up, pad) for name, shape, up, pad in upfirdn2d_sites()]
+SITES = [(name, shape, up, pad) for name, shape, up, pad in stylegan2f.upfirdn2d_sites()]
 # (id, shape, up, down, pad): the packed plan's last job part full (679
 # planes of 7x7 outputs, 3 a job), rows of odd width, cropping pads
 EXTRA = [("packed_remainder", (7, 97, 8, 8), 1, 1, (1, 1, 1, 1)),
@@ -57,16 +59,16 @@ def _check(dev, shape, k, up, down, pad, dtype, offset=0):
     gen = torch.Generator(device=dev).manual_seed(sum(shape) + up + 7 * down)
     flat = torch.randn(offset + int(np.prod(shape)), generator=gen, device=dev).to(dtype)
     x = flat[offset:].view(shape).requires_grad_(True)  # offset 1: rows start mid-pair
-    launches, plans = fir.upfirdn2d.launches, dict(fir.upfirdn2d.plans)
+    before = _build.launches.copy()
     y = fir.upfirdn2d(x, k, up=up, down=down, pad=pad)
     dy = torch.randn(y.shape, generator=gen, device=dev).to(dtype)
     (dx,) = torch.autograd.grad(y, x, dy)
     torch.cuda.synchronize()
-    assert fir.upfirdn2d.launches - launches == 2
+    launched = _build.launches - before
     want_plans = [fir.plan(shape[0] * shape[1], *y.shape[2:], up, down).name,
                   fir.plan(shape[0] * shape[1], *shape[2:], down, up).name]
-    for name in set(want_plans):
-        assert fir.upfirdn2d.plans[name] - plans.get(name, 0) == want_plans.count(name)
+    assert launched == collections.Counter(
+        ["mdgan_upfirdn2d"] * 2 + [f"mdgan_upfirdn2d/{name}" for name in want_plans])
     xr = x.detach().float().requires_grad_(True)
     yr = fir.upfirdn2d_plain(xr, k, up=up, down=down, pad=pad)
     (dxr,) = torch.autograd.grad(yr, xr, dy.float())

@@ -40,9 +40,13 @@ with its seconds:
            the plan each took, the forward against the plain version's and
            against the one cuDNN call that computes it (a depthwise
            ``conv2d``, or at up=2 a depthwise stride-2
-           ``conv_transpose2d``); then two config-f MD-GAN rounds (N=8, b=4,
-           bfloat16) through ``run_rounds``, the kernel's launches counted
-           from them: 600 a round, with the plans they took
+           ``conv_transpose2d``); each site of 8 channels or more again on
+           channels_last input (the ``nhwc`` plan, bit-equal to the NCHW
+           plans, beside cuDNN's call on the same layout); then two config-f
+           MD-GAN rounds (N=8, b=4, bfloat16) through ``run_rounds``, the
+           kernel's launches counted from them: 600 a round, all but the
+           generator's RGB skips and their gradients (12 a round) by the
+           ``nhwc`` plan
   golden   the committed JAX-trained generator through ``from_jax``: a
            train-mode forward on the card equals the CPU's (float32, TF32 off)
   round    two narrow MD-GAN rounds (N=2, width 8) on the card against the
@@ -719,9 +723,11 @@ def upfirdn2d_library(x, k, up: int, pad):
 @no_tf32()
 def phase_upfirdn2d():
     """The FIR resampling kernel against its plain version at config-f's
-    resampling shapes, forward and backward, in float32 and bfloat16; each
-    site's forward device time against the byte bound, the plain version's
-    and cuDNN's one call (``upfirdn2d_library``), and each site's backward
+    resampling shapes, forward and backward, in float32 and bfloat16, on
+    NCHW input and, at 8 channels or more, channels_last input (the ``nhwc``
+    plan, which must give the NCHW plans' bits); each site's forward device
+    time against the byte bound, the plain version's and cuDNN's one call
+    (``upfirdn2d_library``) on the same layout, and each site's backward
     (the gradient's resampling, called as the backward calls it) against
     its byte bound, with the plan of each; then config-f MD-GAN rounds with
     the kernel's launches counted from them (``upfirdn2d_rounds``)."""
@@ -735,67 +741,91 @@ def phase_upfirdn2d():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+
+    def distinct(shape, dtype, layout):  # a per-(n, c) offset: a wrong stride shows
+        n, c = shape[:2]
+        t = torch.randn(shape, generator=gen, device=dev)
+        t = (t + 0.25 * torch.arange(n * c, device=dev).view(n, c, 1, 1)).to(dtype)
+        return t.contiguous(memory_format=layout)
+
+    def plan_name(t, out_hw, up, down):
+        return fir.plan(math.prod(t.shape[:2]), *out_hw, up, down,
+                        t.shape[1] if fir.takes_nhwc(t) else 0, t.element_size()).name
+
+    def site(name, shape, up, pad, k, dtype, layout):
+        x = distinct(shape, dtype, layout).requires_grad_(True)
+        before = _build.launches["mdgan_upfirdn2d"]
+        y = fir.upfirdn2d(x, k, up=up, pad=pad)
+        dy = distinct(y.shape, dtype, layout)
+        (dx,) = torch.autograd.grad(y, x, dy)
+        launched = _build.launches["mdgan_upfirdn2d"] - before
+        require(launched == 2,
+                f"upfirdn2d {name}: {launched} launches for a forward and its backward, want 2")
+        xr = x.detach().float().requires_grad_(True)
+        yr = fir.upfirdn2d_plain(xr, k, up=up, pad=pad)
+        (dxr,) = torch.autograd.grad(yr, xr, dy.float())
+        library = upfirdn2d_library(x.detach(), k, up, pad)
+        gpad = fir.grad_pad(shape[2:], y.shape[2:], up, 1, pad)
+        k_flip = np.ascontiguousarray(k[::-1, ::-1])
+        errs = {}
+        for what, got, want in (("forward", y, yr), ("backward", dx, dxr),
+                                ("library", library(x.detach()), yr)):
+            got, want = got.detach().float(), want.detach().float()
+            err = (got - want).abs()
+            # float32: the sums' order; bfloat16: the float32 sum rounded
+            # once (half a bfloat16 ulp), plus the order where it cancels
+            scale = 1e-5 * want.abs().max()
+            if dtype == torch.bfloat16:
+                scale = scale + 2.0 ** -8 * want.abs()
+            require(bool((err <= scale).all()),
+                    f"upfirdn2d {name} {dtype} {layout} {what}: max err {float(err.max())}")
+            errs[what] = float(err.max())
+        if fir.takes_nhwc(x):  # the same float32 sums in the same order as the NCHW plans
+            require(torch.equal(y, fir.upfirdn2d(x.detach().contiguous(), k, up=up, pad=pad))
+                    and torch.equal(dx, fir.upfirdn2d(dy.contiguous(), k_flip, up=1, down=up,
+                                                      pad=gpad)),
+                    f"upfirdn2d {name} {dtype}: the nhwc plan's bits differ from the NCHW plans'")
+        nbytes = (x.numel() + y.numel()) * x.element_size()
+        xs = [distinct(shape, dtype, layout)
+              for _ in range(max(1, math.ceil(2 * L2_BYTES / nbytes)))]
+        dys = [distinct(y.shape, dtype, layout) for _ in range(len(xs))]
+        it = itertools.count()
+        t = time_ms(lambda: fir.upfirdn2d(xs[next(it) % len(xs)], k, up=up, pad=pad), 20)
+        lib_t = time_ms(lambda: library(xs[next(it) % len(xs)]), 20)
+        # the backward's own call: dy (y's shape) back to x's shape
+        bwd_t = time_ms(lambda: fir.upfirdn2d(dys[next(it) % len(dys)], k_flip, up=1, down=up,
+                                              pad=gpad), 20)
+        b_ms, b_by = bound_ms(nbytes, 2 * 16 * y.numel())
+        bwd_ms, _ = bound_ms(nbytes, 2 * 16 * x.numel())
+        rec = {"ms": t["ms"], "library_ms": lib_t["ms"], "bound_ms": b_ms, "bound_by": b_by,
+               "share_of_bound": b_ms / t["ms"], "backward_ms": bwd_t["ms"],
+               "backward_bound_ms": bwd_ms, "backward_share_of_bound": bwd_ms / bwd_t["ms"],
+               "plans": {"forward": plan_name(x, y.shape[2:], up, 1),
+                         "backward": plan_name(dy, shape[2:], 1, up)},
+               "max_abs_err": errs}
+        if layout == torch.contiguous_format:
+            k_dev = torch.from_numpy(k).to(dev)  # the plain version's filter, on the card
+            rec["plain_ms"] = time_ms(lambda: fir.upfirdn2d_plain(xs[next(it) % len(xs)], k_dev,
+                                                                  up=up, pad=pad), 10)["ms"]
+            rec.update(shape=list(shape), up=up, pad=list(pad), bytes=nbytes)
+        return rec
+
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         recs = {}
         for name, shape, up, pad in stylegan2f.upfirdn2d_sites():
             k = stylegan2f._FIR_UP if name.startswith("g_") else stylegan2f._FIR
-            x = torch.randn(shape, generator=gen, device=dev).to(dtype).requires_grad_(True)
-            before = _build.launches["mdgan_upfirdn2d"]
-            y = fir.upfirdn2d(x, k, up=up, pad=pad)
-            dy = torch.randn(y.shape, generator=gen, device=dev).to(dtype)
-            (dx,) = torch.autograd.grad(y, x, dy)
-            launched = _build.launches["mdgan_upfirdn2d"] - before
-            require(launched == 2,
-                    f"upfirdn2d {name}: {launched} launches for a "
-                    "forward and its backward, want 2")
-            xr = x.detach().float().requires_grad_(True)
-            yr = fir.upfirdn2d_plain(xr, k, up=up, pad=pad)
-            (dxr,) = torch.autograd.grad(yr, xr, dy.float())
-            library = upfirdn2d_library(x.detach(), k, up, pad)
-            errs = {}
-            for what, got, want in (("forward", y, yr), ("backward", dx, dxr),
-                                    ("library", library(x.detach()), yr)):
-                got, want = got.detach().float(), want.detach().float()
-                err = (got - want).abs()
-                # float32: the sums' order; bfloat16: the float32 sum rounded
-                # once (half a bfloat16 ulp), plus the order where it cancels
-                scale = 1e-5 * want.abs().max()
-                if dtype == torch.bfloat16:
-                    scale = scale + 2.0 ** -8 * want.abs()
-                ok = bool((err <= scale).all())
-                require(ok, f"upfirdn2d {name} {dtype} {what}: max err {float(err.max())}")
-                errs[what] = float(err.max())
-            nbytes = (x.numel() + y.numel()) * x.element_size()
-            xs = [torch.randn(shape, generator=gen, device=dev).to(dtype)
-                  for _ in range(max(1, math.ceil(2 * L2_BYTES / nbytes)))]
-            it = itertools.count()
-            t = time_ms(lambda: fir.upfirdn2d(xs[next(it) % len(xs)], k, up=up, pad=pad), 20)
-            k_dev = torch.from_numpy(k).to(dev)  # the plain version's filter, on the card
-            plain_t = time_ms(lambda: fir.upfirdn2d_plain(xs[next(it) % len(xs)], k_dev, up=up,
-                                                          pad=pad), 10)
-            lib_t = time_ms(lambda: library(xs[next(it) % len(xs)]), 20)
-            b_ms, b_by = bound_ms(nbytes, 2 * 16 * y.numel())
-            # the backward's own call: dy (y's shape) back to x's shape
-            gpad = fir.grad_pad(shape[2:], y.shape[2:], up, 1, pad)
-            k_flip = np.ascontiguousarray(k[::-1, ::-1])
-            dys = [torch.randn(y.shape, generator=gen, device=dev).to(dtype)
-                   for _ in range(len(xs))]
-            bwd_t = time_ms(lambda: fir.upfirdn2d(dys[next(it) % len(dys)], k_flip, up=1,
-                                                  down=up, pad=gpad), 20)
-            bwd_ms, _ = bound_ms(nbytes, 2 * 16 * x.numel())
-            plans = {what: fir.plan(math.prod(t.shape[:2]), *t.shape[2:], u, d).name
-                     for what, t, u, d in (("forward", y, up, 1), ("backward", x, 1, up))}
-            recs[name] = {"shape": list(shape), "up": up, "pad": list(pad), "bytes": nbytes,
-                          "ms": t["ms"], "plain_ms": plain_t["ms"], "library_ms": lib_t["ms"],
-                          "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / t["ms"],
-                          "backward_ms": bwd_t["ms"], "backward_bound_ms": bwd_ms,
-                          "backward_share_of_bound": bwd_ms / bwd_t["ms"], "plans": plans,
-                          "max_abs_err": errs}
-            del x, y, dx, xr, yr, dxr, xs, dys, library
+            recs[name] = site(name, shape, up, pad, k, dtype, torch.contiguous_format)
+            if shape[1] % fir.NHWC_CHANNELS == 0:
+                recs[name]["nhwc"] = site(name, shape, up, pad, k, dtype, torch.channels_last)
+            torch.cuda.empty_cache()
         sums = {key: sum(r[key] for r in recs.values())
                 for key in ("ms", "plain_ms", "library_ms", "bound_ms", "backward_ms",
                             "backward_bound_ms")}
+        # as the round runs them: channels_last where a site has 8 channels or more
+        main = [r.get("nhwc", r) for r in recs.values()]
+        path = {key: sum(r[key] for r in main)
+                for key in ("ms", "library_ms", "backward_ms")}
         out[str(dtype).split(".")[-1]] = {
             "calls": recs, "forward_ms": sums["ms"], "plain_ms": sums["plain_ms"],
             "library_ms": sums["library_ms"], "bound_ms": sums["bound_ms"],
@@ -803,7 +833,13 @@ def phase_upfirdn2d():
             "share_of_bound": sums["bound_ms"] / sums["ms"],
             "backward_ms": sums["backward_ms"], "backward_bound_ms": sums["backward_bound_ms"],
             "backward_share_of_bound": sums["backward_bound_ms"] / sums["backward_ms"],
-            "max_abs_err": max(e for r in recs.values() for e in r["max_abs_err"].values())}
+            "main_path": {"forward_ms": path["ms"], "library_ms": path["library_ms"],
+                          "share_of_bound": sums["bound_ms"] / path["ms"],
+                          "backward_ms": path["backward_ms"],
+                          "backward_share_of_bound": sums["backward_bound_ms"]
+                          / path["backward_ms"]},
+            "max_abs_err": max(e for r in recs.values() for rr in (r, r.get("nhwc", r))
+                               for e in rr["max_abs_err"].values())}
     torch.cuda.empty_cache()
     out["mdgan_rounds"] = upfirdn2d_rounds()
     return out
@@ -817,7 +853,9 @@ def upfirdn2d_rounds(rounds: int = 2, n: int = 8, b: int = 4, blocks: int = 6):
     up-modconv's FIR, the RGB skip) and two in the discriminator (its
     blurs), each one launch a forward and one a backward: the generator's
     forward and VJP, and each worker's real and fake forwards, their
-    backward, and the feedback's forward and backward."""
+    backward, and the feedback's forward and backward.  Every one runs the
+    ``nhwc`` plan (the networks' activations channels_last) but the RGB
+    skips and their gradients, which take 3 channels."""
     import numpy as np
     import torch
 
@@ -840,11 +878,13 @@ def upfirdn2d_rounds(rounds: int = 2, n: int = 8, b: int = 4, blocks: int = 6):
     plans = {key.split("/")[1]: count for key, count in _build.launches.items()
              if key.startswith("mdgan_upfirdn2d/")}
     want = rounds * (2 * 2 * blocks + n * 6 * 2 * blocks)
+    rgb = rounds * 2 * blocks
     losses = {k: m[k].float().cpu().tolist() for k in ("mean_d_loss", "g_feedback_loss")}
     require(all(math.isfinite(v) for vals in losses.values() for row in vals for v in row),
             f"config-f rounds: losses {losses}")
     require(launched == want, f"config-f rounds: {launched} upfirdn2d launches, want {want}")
-    require(sum(plans.values()) == launched, f"config-f rounds: plans {plans}")
+    require(sum(plans.values()) == launched and plans.get("nhwc") == want - rgb,
+            f"config-f rounds: plans {plans}, want nhwc {want - rgb} and {rgb} others")
     del eng, st, data, m
     torch.cuda.empty_cache()
     return {"rounds": rounds, "num_workers": n, "batch_size": b, "launches": launched,
@@ -853,19 +893,23 @@ def upfirdn2d_rounds(rounds: int = 2, n: int = 8, b: int = 4, blocks: int = 6):
 
 def upfirdn2d_entry(rec: dict) -> dict:
     """The FIR kernel's entry of the ``kernels`` line: its launches on the
-    main path (``upfirdn2d_rounds``), and its bfloat16 forward times
-    (config-f's compute dtype) summed over the sites of one generator
-    forward (8 images) and one discriminator forward (4 images), against
-    the plain version's, cuDNN's and the byte bound.  The JAX package has
-    no such kernel: NVlabs' StyleGAN2 ships it as its own CUDA op."""
+    main path (``upfirdn2d_rounds``), by plan, and its bfloat16 forward
+    times (config-f's compute dtype) summed over the sites of one generator
+    forward (8 images) and one discriminator forward (4 images) in the
+    layouts the round runs them in, against the plain version's, cuDNN's
+    (on the same layouts) and the byte bound.  The JAX package has no such
+    kernel: NVlabs' StyleGAN2 ships it as its own CUDA op."""
     bf16, rounds = rec["bfloat16"], rec["mdgan_rounds"]
-    times = {k: bf16[k] for k in ("plain_ms", "library_ms", "bound_ms", "bound_by")}
+    times = {"plain_ms": bf16["plain_ms"], "library_ms": bf16["main_path"]["library_ms"],
+             "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"]}
+    ms = bf16["main_path"]["forward_ms"]
     return {"name": "upfirdn2d", "route": "cuda", "source": "mdgan_tpu_torch/csrc/upfirdn2d.cu",
             "replaces": None, "launches": rounds["launches"],
             "max_abs_err": max(rec[d]["max_abs_err"] for d in ("float32", "bfloat16")),
-            "ms": bf16["forward_ms"], **times,
+            "ms": ms, **times,
             "by_path": {"stylegan2f_mdgan_bfloat16": {"launches": rounds["launches"],
-                                                      "ms": bf16["forward_ms"], **times}}}
+                                                      "plans": rounds["plans"], "ms": ms,
+                                                      **times}}}
 
 
 @no_tf32()

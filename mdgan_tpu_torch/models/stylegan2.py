@@ -58,6 +58,41 @@ def _lrelu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, 0.2) * _SQRT2
 
 
+def channels_last(x: torch.Tensor) -> bool:
+    """Whether ``x`` (N, C, H, W) lies channels_last (and not also NCHW,
+    as a tensor with one channel or one pixel does)."""
+    return x.is_contiguous(memory_format=torch.channels_last) and not x.is_contiguous()
+
+
+class _ChannelsLastCast(torch.autograd.Function):
+    """``w`` cast to ``dtype`` and laid out channels_last in one copy; its
+    gradient cast back and laid out as ``w`` in one copy, so that it adds
+    into the parameter's gradient as a dense tensor of the same strides."""
+
+    @staticmethod
+    def forward(ctx, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        ctx.dtype = w.dtype
+        return w.to(dtype, memory_format=torch.channels_last)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad.to(ctx.dtype, memory_format=torch.contiguous_format), None
+
+
+def conv_weight(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A convolution's run-time weight ``w`` (contiguous) for the input
+    ``x``: ``w`` as it is for an NCHW ``x``; for a channels_last ``x``,
+    ``w`` cast to the dtype the convolution computes in (autocast's, else
+    ``x``'s) and laid out channels_last in that same copy, so that cuDNN's
+    NHWC kernels read it without a transpose of their own (the cast is the
+    one autocast would make), and its gradient comes back contiguous."""
+    if not channels_last(x):
+        return w
+    kind = x.device.type
+    dtype = torch.get_autocast_dtype(kind) if torch.is_autocast_enabled(kind) else x.dtype
+    return _ChannelsLastCast.apply(w, dtype)
+
+
 def feats(base_features: int, res: int) -> int:
     """Channels at resolution ``res``: ``base_features`` down to 64
     (``stylegan2.py:135-137``)."""
@@ -97,7 +132,8 @@ class MappingNetwork(nn.Module):
 
 class ModulatedConv(nn.Module):
     """k x k modulated conv; with ``demodulate`` the output is exactly that
-    of the per-sample weight-demodulated kernel."""
+    of the per-sample weight-demodulated kernel.  The output keeps the
+    input's memory format (:func:`conv_weight`)."""
 
     def __init__(self, in_ch: int, out_ch: int, w_dim: int, kernel: int = 3,
                  demodulate: bool = True):
@@ -115,7 +151,8 @@ class ModulatedConv(nn.Module):
             wk = self.weight * self.he
             if self.demodulate:
                 d = torch.rsqrt((s * s) @ (wk * wk).sum(dim=(2, 3)).t() + 1e-8)  # (b, out)
-        y = F.conv2d(x * s[:, :, None, None].to(x.dtype), wk, padding=self.padding)
+        x = x * s[:, :, None, None].to(x.dtype)
+        y = F.conv2d(x, conv_weight(wk, x), padding=self.padding)
         if self.demodulate:
             y = y * d[:, :, None, None].to(y.dtype)
         return y
@@ -210,6 +247,8 @@ def minibatch_stddev(x: torch.Tensor, group_size: int = 4, replica=None) -> torc
     y = y - y.mean(dim=0, keepdim=True)
     y = torch.sqrt((y * y).mean(dim=0) + 1e-8).mean(dim=(1, 2, 3))  # (b//g,)
     y = y.repeat(g)[:, None, None, None].to(x.dtype).expand(b, 1, h, w)
+    if channels_last(x):  # the concatenation is channels_last only if each part is
+        y = y.contiguous(memory_format=torch.channels_last)
     return torch.cat([x, y], dim=1)
 
 

@@ -1,5 +1,5 @@
 """StyleGAN2 config-f (Karras et al., "Analyzing and Improving the Image
-Quality of StyleGAN", CVPR 2020), NCHW, as NVlabs/stylegan2 builds it
+Quality of StyleGAN", CVPR 2020), as NVlabs/stylegan2 builds it
 (``training/networks_stylegan2.py``, ``run_training.py --config=config-f``):
 a skip generator and a residual discriminator, at 256x256 by default (LSUN
 Church).
@@ -28,7 +28,17 @@ Church).
   equalized-lr: N(0, 1) weights scaled by 1/sqrt(fan_in) at run time.
 
 The blur and the FIR upsampling are ``ops/upfirdn2d.py`` (its CUDA kernel on
-the card); the transposed and strided convs stay with cuDNN.  The noise
+the card); the transposed and strided convs stay with cuDNN.  Tensors are
+logically (N, C, H, W) at every interface.  On a CUDA card both networks
+keep their activations channels_last inside (:func:`activation_format`),
+from the generator's constant and the discriminator's input image on, and
+every later op follows its input's layout: cuDNN's convolutions on the H100
+are NHWC kernels, which would otherwise transpose every NCHW input, weight
+and output (``models/stylegan2.py`` ``conv_weight`` casts each run-time
+weight channels_last in the copy autocast makes anyway), and the FIR kernel
+takes channels_last input as it lies (its ``nhwc`` plan).  The generator's
+3-channel RGB skip runs NCHW (the FIR's NCHW plans), and the image it
+returns is NCHW-contiguous float32.  The noise
 inputs are the generator's :meth:`StyleGAN2FGenerator.noise_shapes`, in
 forward order, and every forward is handed them: a round's from lane NOISE
 (``engine/mdgan.py`` ``g_inputs``), a sample's from the sampler's generator
@@ -54,7 +64,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mdgan_tpu_torch.models.stylegan2 import (EqualDense, MappingNetwork, ModulatedConv,
-                                              _lrelu, minibatch_stddev)
+                                              _lrelu, conv_weight, minibatch_stddev)
 from mdgan_tpu_torch.ops.upfirdn2d import setup_kernel, upfirdn2d
 
 SHAPE = (256, 256, 3)
@@ -76,6 +86,15 @@ def _channels(res: int, fmap_base: int, fmap_max: int) -> int:
     return nf(int(math.log2(res)) - 1, fmap_base, fmap_max)
 
 
+def activation_format(t: torch.Tensor) -> torch.memory_format:
+    """The layout the networks keep their activations in, for inputs on
+    ``t``'s device: channels_last on a CUDA card, where cuDNN's convolutions
+    are NHWC kernels and the FIR kernel has its ``nhwc`` plan; NCHW
+    elsewhere, where no kernel gains by it and NCHW keeps the CPU's float32
+    sums in the reference's order."""
+    return torch.channels_last if t.is_cuda else torch.contiguous_format
+
+
 def _resolutions(max_res: int) -> List[int]:
     out = [4 * 2 ** i for i in range(int(math.log2(max(max_res, 4) // 4)) + 1)]
     if out[-1] != max_res:
@@ -94,8 +113,8 @@ class UpModulatedConv(ModulatedConv):
             s = self.mod(style.float())
             wk = self.weight * self.he
             d = torch.rsqrt((s * s) @ (wk * wk).sum(dim=(2, 3)).t() + 1e-8)
-        y = F.conv_transpose2d(x * s[:, :, None, None].to(x.dtype),
-                               wk.transpose(0, 1).flip(2, 3), stride=2)
+        x = x * s[:, :, None, None].to(x.dtype)
+        y = F.conv_transpose2d(x, conv_weight(wk.transpose(0, 1).flip(2, 3), x), stride=2)
         y = upfirdn2d(y, _FIR_UP, pad=(1, 1, 1, 1))
         return y * d[:, :, None, None].to(y.dtype)
 
@@ -153,12 +172,13 @@ class StyleGAN2FGenerator(nn.Module):
         return [(1, 4, 4)] + [(1, r, r) for r in self.resolutions[1:] for _ in range(2)]
 
     def forward(self, z: torch.Tensor, noise: Sequence[torch.Tensor]) -> torch.Tensor:
-        """z (b, z_dim) -> (b, C, H, W) float32; ``noise``: one (b, 1, r, r)
-        tensor a noise input (:meth:`noise_shapes`)."""
+        """z (b, z_dim) -> (b, C, H, W) float32, NCHW-contiguous; ``noise``:
+        one (b, 1, r, r) tensor a noise input (:meth:`noise_shapes`)."""
         if len(noise) != len(self.noise_shapes()):
             raise ValueError(f"{len(noise)} noise inputs, want {len(self.noise_shapes())}")
         style = self.mapping(z)
-        x = self.const[None].expand(z.shape[0], -1, -1, -1)
+        x = self.const[None].expand(z.shape[0], -1, -1, -1).contiguous(
+            memory_format=activation_format(z))
         x = self.b4(x, style, noise[0])
         rgb = self.trgb4(x, style)
         for i, res in enumerate(self.resolutions[1:]):
@@ -166,7 +186,7 @@ class StyleGAN2FGenerator(nn.Module):
             x = same(up(x, style, noise[1 + 2 * i]), style, noise[2 + 2 * i])
             t = getattr(self, f"trgb{res}")(x, style)
             rgb = upfirdn2d(rgb, _FIR_UP, up=2, pad=(2, 1, 2, 1)).to(t.dtype) + t
-        return rgb.float()
+        return rgb.to(torch.float32, memory_format=torch.contiguous_format)
 
 
 def upfirdn2d_sites(b_g: int = 8, b_d: int = 4):
@@ -197,7 +217,8 @@ class EqualConv2d(nn.Module):
         self.stride, self.padding = stride, padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight * self.scale, self.bias, self.stride, self.padding)
+        return F.conv2d(x, conv_weight(self.weight * self.scale, x), self.bias, self.stride,
+                        self.padding)
 
 
 class DBlock(nn.Module):
@@ -233,11 +254,13 @@ class StyleGAN2FDiscriminator(nn.Module):
         self.out = EqualDense(nf(0, fmap_base, fmap_max), 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (b, C, H, W) -> (b,) float32 logits."""
         b = x.shape[0]
-        y = _lrelu(self.from_rgb(x))
+        y = _lrelu(self.from_rgb(x.contiguous(memory_format=activation_format(x))))
         for res in self.resolutions:
             y = getattr(self, f"b{res}")(y)
         y = _lrelu(self.conv_out(minibatch_stddev(y, replica=self.replica)))
+        # the dense layer takes the map flattened in NCHW order
         return self.out(_lrelu(self.fc(y.reshape(b, -1)))).reshape(b).float()
 
 

@@ -46,7 +46,7 @@ SIGNATURES = {
     "mdgan_sample_normalize_u8": [_c_void_p] * 3 + [_c_int64, _c_int, _c_int, _c_int64,
                                                     _c_int, _c_int, _c_void_p],
     "mdgan_upfirdn2d": [_c_void_p, _c_void_p, _c_int, _c_int64] + [_c_int] * 8
-                       + [_c_void_p, _c_int, _c_int] + [_c_int] * 6 + [_c_void_p],
+                       + [_c_void_p, _c_int, _c_int] + [_c_int] * 8 + [_c_void_p],
 }
 
 # kernel launches since the last ``clear()``, by entry point; the FIR's also

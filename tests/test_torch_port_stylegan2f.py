@@ -17,7 +17,13 @@ Held here:
     and at odd sizes and cropping pads, by a model of the kernel's blocks
     and patches: every output computed once, every input row and column
     the taps reach staged, shared memory within the plan's limit, whole
-    planes packed where outputs are 32 wide or less;
+    planes packed where outputs are 32 wide or less; the same for the
+    ``nhwc`` plan, which the wrapper takes only for a 16-byte-aligned
+    channels_last input of 8k channels, and the plain version's layout and
+    values on channels_last input;
+  * the networks with their activations channels_last, as they run on a
+    card, against the same networks NCHW, as they run on the CPU, with
+    every convolution taking channels_last tensors;
   * the generator's forward with given noise, the discriminator's forward,
     and their parameter and input gradients, against the reference;
   * one MD-GAN round at N=2 with given latents and noise, and one standalone
@@ -55,6 +61,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from mdgan_tpu_torch.core import prng, registry
 from mdgan_tpu_torch.core.config import OptimizerConfig, TrainConfig
@@ -64,7 +71,7 @@ from mdgan_tpu_torch.data.sampler import ShardSampler
 from mdgan_tpu_torch.engine.mdgan import MDGANEngine
 from mdgan_tpu_torch.engine.standalone import StandaloneEngine
 from mdgan_tpu_torch.engine.state import NetState
-from mdgan_tpu_torch.models import from_jax
+from mdgan_tpu_torch.models import from_jax, stylegan2f
 from mdgan_tpu_torch.models.stylegan2f import upfirdn2d_sites
 from mdgan_tpu_torch.ops.losses import normalize_uint8
 from mdgan_tpu_torch.ops import upfirdn2d as upfirdn2d_ops
@@ -176,11 +183,9 @@ def test_upfirdn2d_kernel_refuses_other_resamplings(taps, up, down):
     assert upfirdn2d(x, np.ones(taps, np.float32), up=up, down=down).shape[0] == 1
 
 
-def test_upfirdn2d_wrapper_passes_the_plan(monkeypatch):
-    """``_launch`` hands the C entry point exactly the arguments its ctypes
-    signature declares, the call's plan among them, and counts the launch
-    under the plan's name (the library and the CUDA calls stubbed: no card
-    runs here)."""
+def _stub_library(monkeypatch):
+    """The kernel library and the CUDA calls stubbed (no card runs here):
+    the argument tuples the C entry point would get."""
     calls = []
 
     class Lib:
@@ -193,6 +198,15 @@ def test_upfirdn2d_wrapper_passes_the_plan(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("Stream", (), {"cuda_stream": 7})())
     monkeypatch.setattr(upfirdn2d_ops._build, "launches", collections.Counter())
+    return calls
+
+
+def test_upfirdn2d_wrapper_passes_the_plan(monkeypatch):
+    """``_launch`` hands the C entry point exactly the arguments its ctypes
+    signature declares, the call's plan among them, and counts the launch
+    under the plan's name (the library and the CUDA calls stubbed: no card
+    runs here)."""
+    calls = _stub_library(monkeypatch)
     x = torch.zeros(2, 3, 9, 9)
     y = upfirdn2d_ops._launch(x, setup_kernel((1, 3, 3, 1)), 1, 1, (1, 1, 1, 1))
     (args,) = calls
@@ -340,6 +354,144 @@ def test_upfirdn2d_plan_packs_small_planes(call):
             assert not fits(1, -(-plane_groups // (tiles - 1)))
 
 
+def _nhwc_calls():
+    """(id, n, c, (in_h, in_w), up, down, pad, itemsize) of every config-f
+    resampling of 8 channels or more and its gradient's call (the nhwc
+    plan's), then odd sizes, cropping pads and channel counts."""
+    calls = []
+    for name, (n, c, h, w), up, pad in upfirdn2d_sites():
+        if c % upfirdn2d_ops.NHWC_CHANNELS:
+            continue
+        out = (upfirdn2d_ops.out_size(h, up, 1, pad[2], pad[3], 4),
+               upfirdn2d_ops.out_size(w, up, 1, pad[0], pad[1], 4))
+        for itemsize in (2, 4):
+            calls.append((f"{name}_{itemsize}", n, c, (h, w), up, 1, pad, itemsize))
+            calls.append((f"{name}_grad_{itemsize}", n, c, out, 1, up,
+                          upfirdn2d_ops.grad_pad((h, w), out, up, 1, pad), itemsize))
+    for n, c, hw, up, down, pad, itemsize in [
+            (2, 24, (13, 40), 1, 2, (0, 3, 1, 2), 2), (2, 16, (13, 40), 2, 1, (3, -1, -2, 3), 4),
+            (3, 40, (31, 45), 1, 1, (1, 1, -1, 2), 4), (2, 320, (19, 23), 1, 1, (2, 2, 2, 2), 2),
+            (1, 8, (1, 1), 1, 1, (2, 1, 2, 1), 2), (5, 64, (70, 9), 1, 2, (2, 2, 2, 2), 4)]:
+        calls.append((f"odd{n}x{c}x{hw[0]}x{hw[1]}_{up}{down}_{itemsize}", n, c, hw, up, down,
+                      pad, itemsize))
+    return calls
+
+
+NHWC_CALLS = _nhwc_calls()
+
+
+@pytest.mark.parametrize("call", NHWC_CALLS, ids=[c[0] for c in NHWC_CALLS])
+def test_upfirdn2d_nhwc_plan_covers_each_output_once_and_stages_its_taps(call):
+    """The nhwc plan as ``upfirdn2d_nhwc`` takes it: block (x, y, z) computes
+    tile (x // chunks, y) of sample z for the chunk of ``vectors`` channel
+    vectors x % chunks, thread t the patch t // vectors of vector t %
+    vectors; over the blocks each output pixel and vector is written once,
+    every tap of its outputs lies in the block's staged pixels, and the
+    block fits its threads and shared memory.  Where the call makes fewer
+    than ``MIN_BLOCKS`` blocks, no halving of a tile that keeps
+    ``NHWC_THREADS`` is left."""
+    _, n, c, (h, w), up, down, pad, itemsize = call
+    ops = upfirdn2d_ops
+    oh = ops.out_size(h, up, down, pad[2], pad[3], 4)
+    ow = ops.out_size(w, up, down, pad[0], pad[1], 4)
+    pl = ops.plan(n * c, oh, ow, up, down, c, itemsize)
+    vec = 16 // itemsize
+    assert pl.name == "nhwc" and (c // vec) % pl.vectors == 0 and pl.vectors <= ops.NHWC_VECTORS
+    assert pl.tile_h % ops.NHWC_RY == 0 and pl.tile_w % ops.NHWC_XB == 0
+    patches = (pl.tile_h // ops.NHWC_RY) * (pl.tile_w // ops.NHWC_XB)
+    assert pl.threads == pl.vectors * patches <= ops.THREADS
+    assert pl.stage_rows == (pl.tile_h - 1) * down + 4 and pl.pitch == (pl.tile_w - 1) * down + 4
+    assert pl.smem == 16 * pl.vectors * pl.stage_rows * pl.pitch <= pl.smem_limit
+    chunks, tiles_y, tiles_x = c // vec // pl.vectors, -(-oh // pl.tile_h), -(-ow // pl.tile_w)
+    assert pl.grid == n * chunks * tiles_y * tiles_x
+    # one sample's blocks: each (vector, output pixel) written once
+    count = np.zeros((c // vec, oh, ow), np.int32)
+    t = np.arange(pl.threads)
+    v, patch = t % pl.vectors, t // pl.vectors
+    pr, pc = patch // (pl.tile_w // ops.NHWC_XB), patch % (pl.tile_w // ops.NHWC_XB)
+    j, xo = np.meshgrid(np.arange(ops.NHWC_RY), np.arange(ops.NHWC_XB), indexing="ij")
+    taps = np.arange(4)
+    for bx in range(tiles_x * chunks):
+        for by in range(tiles_y):
+            tx0, ty0 = bx // chunks * pl.tile_w, by * pl.tile_h
+            vv = np.broadcast_to((bx % chunks * pl.vectors + v)[:, None, None], (len(t),) + j.shape)
+            oy = ty0 + pr[:, None, None] * ops.NHWC_RY + j
+            ox = tx0 + pc[:, None, None] * ops.NHWC_XB + xo
+            keep = (oy < oh) & (ox < ow)
+            np.add.at(count, (vv[keep], oy[keep], ox[keep]), 1)
+            # staged pixel (sy, sx) holds upsampled, padded pixel
+            # (ty0 * down + sy, tx0 * down + sx)
+            ys = (np.arange(ty0, min(ty0 + pl.tile_h, oh))[:, None] * down + taps).ravel()
+            xs = (np.arange(tx0, min(tx0 + pl.tile_w, ow))[:, None] * down + taps).ravel()
+            assert ys.min() >= ty0 * down and ys.max() - ty0 * down < pl.stage_rows
+            assert xs.min() >= tx0 * down and xs.max() - tx0 * down < pl.pitch
+    assert count.min() == 1 and count.max() == 1
+    if pl.grid < ops.MIN_BLOCKS:
+        for th, tw in ((pl.tile_h // 2 // ops.NHWC_RY * ops.NHWC_RY, pl.tile_w),
+                       (pl.tile_h, pl.tile_w // 2 // ops.NHWC_XB * ops.NHWC_XB)):
+            if th and tw and (th, tw) != (pl.tile_h, pl.tile_w):
+                assert pl.vectors * (th // ops.NHWC_RY) * (tw // ops.NHWC_XB) < ops.NHWC_THREADS
+
+
+def _misaligned_channels_last(n, c, h, w):
+    """A channels_last tensor 4 bytes past a 16-byte boundary."""
+    return torch.zeros(1 + n * h * w * c)[1:].view(n, h, w, c).permute(0, 3, 1, 2)
+
+
+LAYOUT_CASES = [("nchw_c16", 16, False, "planes"), ("channels_last_c16", 16, True, "nhwc"),
+                ("channels_last_c12", 12, True, "planes"), ("channels_last_c3", 3, True, "planes"),
+                ("channels_last_c16_misaligned", 16, None, "planes")]
+
+
+@pytest.mark.parametrize("name,c,channels_last,want", LAYOUT_CASES,
+                         ids=[case[0] for case in LAYOUT_CASES])
+def test_upfirdn2d_takes_nhwc_only_for_channels_last_multiples_of_8(monkeypatch, name, c,
+                                                                    channels_last, want):
+    """The wrapper and ``plan`` take the nhwc plan (kind 2: the input read as
+    it lies, the output channels_last, the plan's tile, vectors and channel
+    count passed) only for a 16-byte-aligned channels_last input whose
+    channels are a multiple of 8; any other input is made contiguous and
+    takes an NCHW plan.  ``plan`` refuses an nhwc plan for other channel
+    counts."""
+    calls = _stub_library(monkeypatch)
+    if channels_last is None:
+        x = _misaligned_channels_last(2, c, 9, 9)
+        assert x.is_contiguous(memory_format=torch.channels_last) and x.data_ptr() % 16
+    else:
+        x = torch.zeros(2, c, 9, 9)
+        x = x.contiguous(memory_format=torch.channels_last) if channels_last else x
+    y = upfirdn2d_ops._launch(x, setup_kernel((1, 3, 3, 1)), 1, 1, (1, 1, 1, 1))
+    (args,) = calls
+    assert upfirdn2d_ops.takes_nhwc(x) == (want == "nhwc")
+    assert y.shape == (2, c, 8, 8)
+    assert y.is_contiguous(memory_format=torch.channels_last if want == "nhwc" else
+                           torch.contiguous_format)
+    assert upfirdn2d_ops._build.launches == {"mdgan_upfirdn2d": 1, f"mdgan_upfirdn2d/{want}": 1}
+    assert args[15] == upfirdn2d_ops.PLAN_KINDS[want] and args[-1] == 7
+    # a copy only where the input is not already what the plan reads
+    assert (args[0] == x.data_ptr()) == (want == "nhwc" or x.is_contiguous())
+    if want == "nhwc":
+        pl = upfirdn2d_ops.plan(2 * c, 8, 8, 1, 1, c, 4)
+        assert args[16:23] == (pl.tile_h, pl.vectors, pl.threads, pl.pitch, pl.stage_rows, c,
+                               pl.tile_w)
+    with pytest.raises(ValueError, match="nhwc plan"):
+        upfirdn2d_ops.plan(2 * 12, 8, 8, 1, 1, 12, 4)
+
+
+@pytest.mark.parametrize("up,down,pad", SITES)
+@pytest.mark.parametrize("c", [16, 12])
+def test_upfirdn2d_plain_on_channels_last_gives_the_nchw_values(up, down, pad, c):
+    """The plain version on a channels_last input: the NCHW input's values,
+    in the layout the kernel would return (channels_last where the nhwc
+    plan takes the input)."""
+    x = torch.randn(2, c, 7, 6, generator=torch.Generator().manual_seed(4))
+    x = x + torch.arange(2 * c).view(2, c, 1, 1)
+    got = upfirdn2d_plain(x.contiguous(memory_format=torch.channels_last), ASYM, up, down, pad)
+    want = upfirdn2d_plain(x, ASYM, up, down, pad)
+    assert torch.equal(got, want) and want.is_contiguous()
+    assert got.is_contiguous(memory_format=torch.channels_last) == (c % 8 == 0)
+
+
 def _weights(net: str, seed: int):
     """The reference's init, then every noise strength and bias drawn too,
     so that each leaf moves the output."""
@@ -425,6 +577,70 @@ def test_parameter_and_input_gradients(net):
     g_want = dict(zip(["input", *p], torch.autograd.grad(want, [arg, *p.values()], cot)))
     for (name, _), grad in zip([("input", None), *module.named_parameters()], g_got):
         _close(grad, g_want[name])
+
+
+class _Convolutions(TorchDispatchMode):
+    """Records the 4-D tensor arguments of every convolution, forward and
+    backward, that runs under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.args = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten.convolution.default,
+                    torch.ops.aten.convolution_backward.default):
+            self.args.append([a for a in args if isinstance(a, torch.Tensor) and a.dim() == 4])
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("net", ["g", "d"])
+def test_channels_last_networks_match_nchw(net, monkeypatch):
+    """Config-f's networks with their activations channels_last, as they
+    run on a card (:func:`stylegan2f.activation_format`), against the same
+    networks NCHW, as they run on the CPU: the forward (the generator's
+    image NCHW-contiguous float32; the discriminator's head flattening its
+    map in NCHW order) and every parameter and input gradient within the
+    module's tolerances.  The noise strengths are held as one vector: each
+    one's gradient is a sum over every pixel of every sample in which terms
+    of both signs cancel (one reads -2.78 where the others read 58-237), so
+    a reordered float32 sum moves it by ~2e-5 of itself while it moves the
+    vector by ~1e-6 of its largest.  Every convolution, forward and
+    backward, takes channels_last tensors, but where a tensor has 3
+    channels (the image, an RGB output's gradient)."""
+    def run(layout):
+        monkeypatch.setattr(stylegan2f, "activation_format", lambda t: layout)
+        gen = torch.Generator().manual_seed(11)
+        if net == "g":
+            module, noise = _generator(), _noise(4, 12)
+            arg = torch.randn(4, 512, generator=gen, requires_grad=True)
+            out = module(arg, noise)
+        else:
+            module = _discriminator()
+            arg = torch.randn(4, 3, 32, 32, generator=gen, requires_grad=True)
+            out = module(arg)
+        cot = torch.randn(out.shape, generator=gen)
+        grads = torch.autograd.grad(out, [arg, *module.parameters()], cot)
+        return out, dict(zip(["input", *(n for n, _ in module.named_parameters())], grads))
+
+    convs = _Convolutions()
+    with convs:
+        got, g_got = run(torch.channels_last)
+    want, g_want = run(torch.contiguous_format)
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    _close(got, want)
+    strengths = [k for k in g_want if k.endswith("noise_strength")]
+    for name in g_want:
+        if name not in strengths:
+            _close(g_got[name], g_want[name])
+    if strengths:
+        _close(torch.stack([g_got[k] for k in strengths]),
+               torch.stack([g_want[k] for k in strengths]))
+    assert len(convs.args) >= 20
+    for tensors in convs.args:
+        for t in tensors:
+            assert t.shape[1] == 3 or t.is_contiguous(memory_format=torch.channels_last), \
+                [tuple(u.shape) for u in tensors]
 
 
 def _train_cfg():
